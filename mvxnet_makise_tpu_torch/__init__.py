@@ -9,16 +9,22 @@ Subpackages
 -----------
 config    : the typed ``Config`` (same fields, defaults and validation).
 geometry  : calibration matrices and rotated-box geometry.
-ops       : voxelizer, column compaction, anchors, NMS, and the two CUDA
-            kernels: the fused column merge (``ops/column_merge.py``) and
-            the FPN bilinear gather (``ops/gather.py``).
+ops       : voxelizer, column compaction, anchors and target assignment,
+            NMS, the dense scatter, and the CUDA kernels: the column merge
+            with and without its epilogue, forward and backward
+            (``ops/column_merge.py``), the FPN bilinear gather
+            (``ops/gather.py``) and the dense voxel scatter, forward and
+            backward (``ops/scatter_grid.py``).
 models    : blocks, the point-major LiDAR branch, the ResNet50-FPN image
             branch, the fused ``MVXNetPM`` and the weight bridge from the
             JAX parameter tree (``models/weights.py``).
 data      : the host feed (C++ crop/project/shuffle/pad) and synthetic
             KITTI-like frames.
 eval      : prediction decoding.
-train     : the batch layout the model consumes.
+train     : the batch layout, loss, optimizer, train step, checkpoints
+            and the training loop.
+utils     : loss statistics and phase timers.
+tools     : ``python -m mvxnet_makise_tpu_torch.tools.train``.
 serve     : ``Detector``, the serving entry point.
 
 Entry points run on the CUDA device unless the caller passes

@@ -2,10 +2,10 @@
 
 Same fields, defaults, derived quantities and ``__post_init__`` validation,
 so a configuration means the same model in both packages.  Some fields
-select formulations that only the JAX package has (``scatter_backend``,
-the ``cml_mode`` and ``fusion_mode`` variants other than the defaults,
-``gather_backend``, ``fusion_stats``); the port keeps them for
-interchange and runs the function they all compute.  ``use_bf16`` and
+select formulations that only the JAX package has (``cml_mode="banded"``,
+the ``fusion_mode`` variants other than the default, ``gather_backend``,
+``fusion_stats``); the port keeps them for interchange and runs the
+function they all compute, or refuses the mode (``models/mvxnet``).  ``use_bf16`` and
 ``norm_scope="batch"`` are validated here and refused by the model
 builder (``models/mvxnet.build_model``).
 """
@@ -92,10 +92,12 @@ class Config:
     # ---- parallelism ----
     mesh_shape: Tuple[int, int] = (1, 1)
 
-    # JAX-side formulation switches, kept for interchange (module
-    # docstring): the port computes the same function whatever they say.
+    # CML form: "column" (K1) or "dense3d" (scatter, then dense 3-D
+    # convs); the dense scatter is K4 under "pallas", else plain PyTorch.
     scatter_backend: str = "auto"
     cml_mode: str = "column"
+    # JAX-side formulation switches, kept for interchange (module
+    # docstring): the port computes the same function whatever they say.
     gather_backend: str = "auto"
     fusion_stats: str = "auto"
 

@@ -1,7 +1,7 @@
-"""Box geometry on tensors: BEV corners, rotated BEV IoU, delta decoding.
+"""Box geometry on tensors: BEV corners, rotated BEV IoU, delta coding.
 
-Port of the parts of ``mvxnet_makise_tpu/geometry/boxes.py`` the
-inference tail uses.  Box convention: ``(x, y, z, l, w, h, r)`` in LiDAR
+Port of the parts of ``mvxnet_makise_tpu/geometry/boxes.py`` that
+serving and training use.  Box convention: ``(x, y, z, l, w, h, r)`` in LiDAR
 coordinates, ``z`` = box bottom, ``r`` = yaw; corners follow the
 reference's row-vector rotation ``[[c, -s], [s, c]]``.
 """
@@ -94,8 +94,21 @@ def rotated_iou_bev(boxes1: torch.Tensor,
     return inter / torch.clamp(union, min=1e-12)
 
 
+def encode_boxes(gt: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
+    """Delta-encode GT boxes against anchors (both (..., 7) xyzlwhr): xy
+    normalized by the anchor BEV diagonal, z by anchor height, log size
+    ratios, additive yaw delta."""
+    d = torch.sqrt(anchors[..., 3] ** 2 + anchors[..., 4] ** 2)
+    t_xy = (gt[..., 0:2] - anchors[..., 0:2]) / d[..., None]
+    t_z = (gt[..., 2:3] - anchors[..., 2:3]) / anchors[..., 5:6]
+    t_lwh = torch.log(torch.clamp(gt[..., 3:6], min=1e-6)
+                      / torch.clamp(anchors[..., 3:6], min=1e-6))
+    t_r = gt[..., 6:7] - anchors[..., 6:7]
+    return torch.cat([t_xy, t_z, t_lwh, t_r], dim=-1)
+
+
 def decode_boxes(deltas: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
-    """Inverse of the training encoder: xy scaled by the anchor BEV
+    """Inverse of :func:`encode_boxes`: xy scaled by the anchor BEV
     diagonal, z by anchor height, log size ratios, additive yaw."""
     d = torch.sqrt(anchors[..., 3] ** 2 + anchors[..., 4] ** 2)
     xy = deltas[..., 0:2] * d[..., None] + anchors[..., 0:2]

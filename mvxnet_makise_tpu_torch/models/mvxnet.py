@@ -31,14 +31,15 @@ class MVXNetPM(nn.Module):
                  eps: float = 1e-6, swapped_bilerp: bool = False,
                  samples_per_voxel: int = 35,
                  image_min_side: float = 800.0,
-                 rpn_trunk: Tuple = REFERENCE_RPN_TRUNK):
+                 rpn_trunk: Tuple = REFERENCE_RPN_TRUNK,
+                 cml_mode: str = "column", scatter_backend: str = "auto"):
         super().__init__()
         self.samples_per_voxel = samples_per_voxel
         self.head = PointImageHead(image_size, eps, swapped_bilerp,
                                    image_min_side)
         self.backbone = VoxelNetBranchPM(
             7 + 16, grid_shape, anchors_per_loc, box_dim, eps,
-            samples_per_voxel, rpn_trunk)
+            samples_per_voxel, rpn_trunk, cml_mode, scatter_backend)
 
     def fused_inputs(self, sorted_points, sorted_kept, sorted_seg, counts,
                      vmask, images):
@@ -78,9 +79,10 @@ def build_model(cfg: Config, seed: Optional[int] = 0,
     ``seed`` (None leaves PyTorch's default initialization), on
     ``device`` (default: the CUDA card)."""
     dev = resolve_device(device)
-    if cfg.fusion_mode != "pm" or cfg.cml_mode != "column":
+    if cfg.fusion_mode != "pm" or cfg.cml_mode not in ("column", "dense3d"):
         raise NotImplementedError(
-            "the port implements fusion_mode='pm' with cml_mode='column'")
+            "the port implements fusion_mode='pm' with cml_mode 'column' "
+            "or 'dense3d'")
     if cfg.use_bf16:
         raise NotImplementedError("the port computes in float32 only")
     if cfg.norm_scope != "sample":
@@ -92,7 +94,8 @@ def build_model(cfg: Config, seed: Optional[int] = 0,
                      swapped_bilerp=cfg.compat_swapped_bilerp,
                      samples_per_voxel=cfg.samples_per_voxel,
                      image_min_side=cfg.image_min_side,
-                     rpn_trunk=cfg.rpn_trunk)
+                     rpn_trunk=cfg.rpn_trunk, cml_mode=cfg.cml_mode,
+                     scatter_backend=cfg.scatter_backend)
     if seed is not None:
         from mvxnet_makise_tpu_torch.models.weights import init_weights
 

@@ -1,12 +1,16 @@
-"""LiDAR-branch middle layers (column CML) and the RPN head.
+"""LiDAR-branch middle layers (column and dense-3D CML) and the RPN head.
 
-Port of ``ColumnConv1ReluNorm``, ``MiddleConvLayersColumn`` and ``RPN``
-from ``mvxnet_makise_tpu/models/voxelnet.py``.  conv1 runs over the
-compacted active columns (one tap matmul, then K1 merges the taps with
-bias, ReLU and the statistics fused in); conv2, conv3 and the RPN are
-plain ``F.conv3d`` / ``nn.Conv2d`` / ``nn.ConvTranspose2d``, as they were
-XLA convolutions in JAX.  Convolutions run channels-first (B, C, D, H, W)
-with H = nx and W = ny; the RPN returns channels-last maps like JAX.
+Port of ``ColumnConv1ReluNorm``, ``MiddleConvLayersColumn``,
+``MiddleConvLayers`` (the dense 3-D form, ``fold_depth=False``),
+``_scatter`` and ``RPN`` from ``mvxnet_makise_tpu/models/voxelnet.py``.
+The column CML's conv1 runs over the compacted active columns (one tap
+matmul, then K1 merges the taps with bias, ReLU and the statistics fused
+in).  The dense CML scatters the voxel rows into the (nz, nx, ny, C) grid
+(K4, or its plain version) and runs three ``F.conv3d``.  conv2, conv3 and
+the RPN are plain ``F.conv3d`` / ``nn.Conv2d`` / ``nn.ConvTranspose2d``, as
+they were XLA convolutions in JAX.  Convolutions run channels-first (B, C,
+D, H, W) with H = nx and W = ny; the RPN returns channels-last maps like
+JAX.
 """
 
 from __future__ import annotations
@@ -30,6 +34,8 @@ from mvxnet_makise_tpu_torch.ops.column_merge import (
     column_bounds,
     merge_taps_fused,
 )
+from mvxnet_makise_tpu_torch.ops.scatter import scatter_voxels_to_grid
+from mvxnet_makise_tpu_torch.ops.scatter_grid import scatter_to_grid
 
 # reference RPN shape: stage channels, extra convs per stage, deconv width
 REFERENCE_RPN_TRUNK = ((128, 128, 256), (3, 5, 5), 256)
@@ -78,8 +84,9 @@ class ColumnConv1ReluNorm(nn.Module):
                                                  self.grid_shape)
         y = column_taps(cols, self.conv.weight.to(vfeat.dtype))
         # the bias lands on every cell, active or not, tiled to the
-        # d-major lanes
-        bias_packed = self.conv.bias.float().repeat(self.d_out)
+        # d-major lanes, in the merge's accumulation dtype
+        bias_packed = self.conv.bias.to(torch.promote_types(
+            vfeat.dtype, torch.float32)).repeat(self.d_out)
         return MergeInputs(y.contiguous(), col_xy[..., 1].contiguous(),
                            column_bounds(col_xy, col_mask, nx),
                            bias_packed.contiguous())
@@ -135,6 +142,47 @@ class MiddleConvLayersColumn(nn.Module):
         x = self.conv1(vfeat, coords, vmask)        # (B, nx, ny, D, C)
         x = x.permute(0, 4, 3, 1, 2).contiguous()   # (B, C, D, nx, ny)
         return self.conv3(self.conv2(x))
+
+
+def scatter_to_dense(features: torch.Tensor, coords: torch.Tensor,
+                     mask: torch.Tensor, grid_shape: Sequence[int],
+                     backend: str) -> torch.Tensor:
+    """(B, V, C) voxel rows -> (B, nz, nx, ny, C) dense grid.  ``backend``
+    "pallas" runs K4 (``ops/scatter_grid``); "auto" and "xla" run the
+    plain scatter, as JAX resolves "auto" to its XLA scatter."""
+    if backend == "pallas":
+        return scatter_to_grid(features, coords, mask, grid_shape)
+    if backend not in ("auto", "xla"):
+        raise ValueError(f"unknown scatter_backend {backend!r}")
+    return scatter_voxels_to_grid(features, coords, mask, grid_shape)
+
+
+class MiddleConvLayers(nn.Module):
+    """Dense CML: scatter into the (nz, nx, ny, C) grid, then conv1 (depth
+    10 -> 5), conv2 (5 -> 3), conv3 (3 -> 2), each 3x3x3 -> ReLU ->
+    per-sample standardize.  Takes per-voxel features and returns (B, C,
+    D, nx, ny), like :class:`MiddleConvLayersColumn`, whose parameters it
+    shares."""
+
+    def __init__(self, in_features: int = 128,
+                 grid_shape: Sequence[int] = (352, 400, 10),
+                 eps: float = 1e-6, scatter_backend: str = "auto"):
+        super().__init__()
+        self.grid_shape = tuple(int(g) for g in grid_shape)
+        self.scatter_backend = scatter_backend
+        self.conv1 = Conv3dReluNorm(in_features, 64, (2, 1, 1), (1, 1, 1),
+                                    eps)
+        self.conv2 = Conv3dReluNorm(64, 64, (1, 1, 1), (0, 1, 1), eps)
+        self.conv3 = Conv3dReluNorm(64, 64, (2, 1, 1), (1, 1, 1), eps)
+
+    def forward(self, vfeat: torch.Tensor, coords: torch.Tensor,
+                vmask: torch.Tensor) -> torch.Tensor:
+        dense = scatter_to_dense(vfeat, coords, vmask, self.grid_shape,
+                                 self.scatter_backend)
+        # (B, nz, nx, ny, C) storage read as (B, C, D, H, W): already
+        # channels_last_3d, so the grid is not copied
+        x = dense.permute(0, 4, 1, 2, 3)
+        return self.conv3(self.conv2(self.conv1(x)))
 
 
 class RPN(nn.Module):

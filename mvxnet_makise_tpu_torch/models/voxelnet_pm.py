@@ -1,7 +1,8 @@
 """Point-major VoxelNet branch: the VFE stack over real points only.
 
-Port of ``mvxnet_makise_tpu/models/voxelnet_pm.py`` with
-``cml_mode="column"``.  Pointwise layers run over the voxel-sorted point
+Port of ``mvxnet_makise_tpu/models/voxelnet_pm.py`` with ``cml_mode``
+"column" (the default) or "dense3d" (``scatter_backend`` "pallas" runs
+K4).  Pointwise layers run over the voxel-sorted point
 list, per-voxel max-pooling is a segment max (``scatter_reduce`` amax),
 and the empty sample slots of each voxel — all holding the same row —
 enter the statistics and the max in closed form with multiplicity
@@ -21,6 +22,7 @@ from mvxnet_makise_tpu_torch.models.blocks import (
 from mvxnet_makise_tpu_torch.models.voxelnet import (
     REFERENCE_RPN_TRUNK,
     RPN,
+    MiddleConvLayers,
     MiddleConvLayersColumn,
 )
 
@@ -136,19 +138,30 @@ class PointSVFE(nn.Module):
 
 
 class VoxelNetBranchPM(nn.Module):
-    """Point-major LiDAR branch: VFE stack, per-voxel pooling, column CML,
-    RPN."""
+    """Point-major LiDAR branch: VFE stack, per-voxel pooling, CML
+    (``cml_mode`` "column" or "dense3d"; "banded" is not ported), RPN."""
 
     def __init__(self, in_features: int = 23,
                  grid_shape: Sequence[int] = (352, 400, 10),
                  anchors_per_loc: int = 2, box_dim: int = 7,
                  eps: float = 1e-6, samples_per_voxel: int = 35,
-                 rpn_trunk: Tuple = REFERENCE_RPN_TRUNK):
+                 rpn_trunk: Tuple = REFERENCE_RPN_TRUNK,
+                 cml_mode: str = "column", scatter_backend: str = "auto"):
         super().__init__()
         self.samples_per_voxel = samples_per_voxel
         self.svfe = PointSVFE(in_features, eps)
         self.fcn = DenseReluNormVirtualWeighted(128, 128, eps)
-        self.cml = MiddleConvLayersColumn(128, grid_shape, eps)
+        if cml_mode == "column":
+            self.cml = MiddleConvLayersColumn(128, grid_shape, eps)
+        elif cml_mode == "dense3d":
+            self.cml = MiddleConvLayers(128, grid_shape, eps,
+                                        scatter_backend)
+        elif cml_mode == "banded":
+            raise NotImplementedError(
+                "cml_mode='banded' is not ported; use 'column' or "
+                "'dense3d'")
+        else:
+            raise ValueError(f"unknown cml_mode {cml_mode!r}")
         self.rpn = RPN(64 * 2, anchors_per_loc, box_dim, eps, rpn_trunk)
 
     def voxel_features(self, points, kept, seg, counts, vmask, z0=None):

@@ -1,13 +1,15 @@
-"""K1: the fused column merge — CUDA kernel, plain version, column bounds.
+"""K1 and K3: the column merge — CUDA kernels, plain versions, gradients.
 
-Port of ``merge_taps_fused`` (``mvxnet_makise_tpu/ops/pallas_column_merge
-.py``), forward only: CML conv1's 9 spatial taps per active BEV column are
-summed into the dense output with the conv's bias, ReLU and the per-row
-standardize statistics fused in.  :func:`merge_taps_fused` launches the
-CUDA kernel (``csrc/column_merge.cu``) for CUDA tensors and runs
-:func:`merge_taps_fused_plain` for CPU tensors; the plain version follows
-the JAX spec ``_merge_fused_reference``.  The backward comes with the
-training slice.
+Port of ``merge_taps_fused`` (K1) and ``merge_taps`` (K3) from
+``mvxnet_makise_tpu/ops/pallas_column_merge.py``, with their custom VJPs:
+CML conv1's 9 spatial taps per active BEV column are summed into the dense
+output; K1 fuses the conv's bias, ReLU and the per-row standardize
+statistics in.  For CUDA tensors the wrappers launch the kernels of
+``csrc/column_merge.cu`` inside ``torch.autograd.Function``s whose
+backwards are kernels too; for CPU tensors they run the plain versions
+(:func:`merge_taps_fused_plain`, :func:`merge_taps_plain`), whose gradients
+are autograd through the same PyTorch ops.  The plain versions follow the
+JAX specs ``_merge_fused_reference`` and ``merge_taps_reference``.
 """
 
 from __future__ import annotations
@@ -19,17 +21,27 @@ import torch
 
 from mvxnet_makise_tpu_torch.ops.cuda_build import (
     CudaKernel,
+    CudaLibrary,
     ptr,
     stream_handle,
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
-KERNEL = CudaKernel("column_merge", "column_merge.cu",
-                    {"merge_fused_f32": _ARGS, "merge_fused_bf16": _ARGS})
-_LAUNCHERS = {torch.float32: "merge_fused_f32",
-              torch.bfloat16: "merge_fused_bf16"}
-# the kernel keeps 3 x (ny + 2) int32 slot ids in shared memory
+_FUSED = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
+_TAPS = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
+_FUSED_BWD = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
+_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+LIBRARY = CudaLibrary("column_merge.cu", {
+    f"{fn}_{suffix}": args for suffix in _DTYPES.values()
+    for fn, args in (("merge_fused", _FUSED), ("merge_taps", _TAPS),
+                     ("merge_fused_bwd", _FUSED_BWD),
+                     ("merge_taps_bwd", _TAPS))})
+KERNEL = CudaKernel("column_merge", LIBRARY)          # K1 forward
+BWD_KERNEL = CudaKernel("column_merge_bwd", LIBRARY)  # K1 backward: pre, dbias
+TAPS_KERNEL = CudaKernel("merge_taps", LIBRARY)       # K3 forward
+TAPS_BWD_KERNEL = CudaKernel("merge_taps_bwd", LIBRARY)  # K3 backward (dy)
+KERNELS = (KERNEL, BWD_KERNEL, TAPS_KERNEL, TAPS_BWD_KERNEL)
+# the forward kernels keep 3 x (ny + 2) int32 slot ids in shared memory
 _MAX_SHARED = 48 * 1024
 
 
@@ -48,13 +60,15 @@ def column_bounds(col_xy: torch.Tensor, col_mask: torch.Tensor,
                               right=False).to(torch.int32)
 
 
-def merge_taps_fused_plain(y: torch.Tensor, col_cy: torch.Tensor,
-                           bounds: torch.Tensor, bias_packed: torch.Tensor,
-                           grid_shape: Sequence[int]
-                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version: 9 scatter-adds, then bias, ReLU and the
-    per-row sums, accumulated in at least float32.  Same outputs as the
-    kernel (see :func:`merge_taps_fused`)."""
+# ----------------------------------------------------------- plain versions
+
+
+def merge_taps_plain(y: torch.Tensor, col_cy: torch.Tensor,
+                     bounds: torch.Tensor, grid_shape: Sequence[int]
+                     ) -> torch.Tensor:
+    """Plain PyTorch version of K3: 9 scatter-adds, accumulated in at
+    least float32, returned in y.dtype.  Same contract as
+    :func:`merge_taps`; differentiable by autograd."""
     nx, ny = grid_shape[0], grid_shape[1]
     B, V, _, R = y.shape
     acc = torch.promote_types(y.dtype, torch.float32)
@@ -75,65 +89,202 @@ def merge_taps_fused_plain(y: torch.Tensor, col_cy: torch.Tensor,
             idx = torch.where(ok, ox * ny + oy, torch.full_like(ox, dump))
             out.scatter_add_(1, idx[..., None].expand(B, V, R).long(),
                              y[:, :, kh * 3 + kw, :].to(acc))
-    merged = out[:, :dump].reshape(B, nx, ny, R).to(y.dtype)
-    emitted = torch.clamp(merged.to(acc) + bias_packed.to(acc), min=0.0)
+    return out[:, :dump].reshape(B, nx, ny, R).to(y.dtype)
+
+
+def merge_taps_fused_plain(y: torch.Tensor, col_cy: torch.Tensor,
+                           bounds: torch.Tensor, bias_packed: torch.Tensor,
+                           grid_shape: Sequence[int]
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K1: :func:`merge_taps_plain`, then bias,
+    ReLU and the per-row sums, accumulated in at least float32.  Same
+    outputs as the kernel (see :func:`merge_taps_fused`).  Its gradient is
+    autograd's: ReLU passes the cotangent only where the output is > 0, as
+    ``_merge_fused_bwd`` does, so the bias gradient sums over every cell."""
+    acc = torch.promote_types(y.dtype, torch.float32)
+    merged = merge_taps_plain(y, col_cy, bounds, grid_shape)
+    emitted = torch.relu(merged.to(acc) + bias_packed.to(acc))
     stats = torch.stack([emitted.sum(dim=2),
                          (emitted * emitted).sum(dim=2)], dim=2)
     return emitted.to(y.dtype), stats
 
 
-def merge_taps_fused(y: torch.Tensor, col_cy: torch.Tensor,
-                     bounds: torch.Tensor, bias_packed: torch.Tensor,
-                     grid_shape: Sequence[int]
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Tap merge with the dense-conv epilogue fused in.
+# ----------------------------------------------------------- kernels
+
+
+def _check(y: torch.Tensor, col_cy: torch.Tensor, bounds: torch.Tensor,
+           grid_shape: Sequence[int], name: str) -> None:
+    if y.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {y.device}")
+    nx, ny = int(grid_shape[0]), int(grid_shape[1])
+    if y.dim() != 4 or y.shape[2] != 9:
+        raise ValueError(f"y must be (B, V, 9, R), got {tuple(y.shape)}")
+    B, V = y.shape[:2]
+    if y.dtype not in _DTYPES:
+        raise TypeError(f"y must be float32 or bfloat16, got {y.dtype}")
+    for arg, t, shape in (("col_cy", col_cy, (B, V)),
+                          ("bounds", bounds, (B, nx + 1))):
+        if tuple(t.shape) != shape or t.dtype != torch.int32:
+            raise ValueError(f"{arg} must be {shape} torch.int32, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+        if t.device != y.device or not t.is_contiguous():
+            raise ValueError(f"{arg} must be contiguous on {y.device}")
+    if not y.is_contiguous():
+        raise ValueError("y must be contiguous")
+    if 3 * (ny + 2) * 4 > _MAX_SHARED:
+        raise ValueError(f"ny={ny} exceeds the kernel's shared-memory map")
+
+
+def _fn(stem: str, dtype: torch.dtype) -> str:
+    return f"{stem}_{_DTYPES[dtype]}"
+
+
+def merge_taps_backward(g: torch.Tensor, col_cy: torch.Tensor,
+                        bounds: torch.Tensor, V: int,
+                        grid_shape: Sequence[int]) -> torch.Tensor:
+    """K3's backward on the card (``_merge_taps_bwd``), the windowed
+    gather: g (B, nx, ny, R) -> dy (B, V, 9, R) in g.dtype."""
+    nx, ny = int(grid_shape[0]), int(grid_shape[1])
+    B, R = g.shape[0], g.shape[-1]
+    g = g.contiguous()
+    dy = torch.empty((B, V, 9, R), dtype=g.dtype, device=g.device)
+    if dy.numel():
+        TAPS_BWD_KERNEL.launch(_fn("merge_taps_bwd", g.dtype), ptr(g),
+                               ptr(col_cy), ptr(bounds), ptr(dy), B, V, nx,
+                               ny, R, stream_handle(g.device))
+    return dy
+
+
+class _MergeTaps(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, col_cy, bounds, grid_shape):
+        nx, ny = int(grid_shape[0]), int(grid_shape[1])
+        B, V, _, R = y.shape
+        out = torch.empty((B, nx, ny, R), dtype=y.dtype, device=y.device)
+        if out.numel():
+            TAPS_KERNEL.launch(_fn("merge_taps", y.dtype), ptr(y),
+                               ptr(col_cy), ptr(bounds), ptr(out), B, V, nx,
+                               ny, R, stream_handle(y.device))
+        ctx.save_for_backward(col_cy, bounds)
+        ctx.grid_shape, ctx.V = grid_shape, V
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        col_cy, bounds = ctx.saved_tensors
+        dy = merge_taps_backward(g, col_cy, bounds, ctx.V, ctx.grid_shape)
+        return dy, None, None, None
+
+
+class _MergeTapsFused(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, col_cy, bounds, bias_packed, grid_shape):
+        nx, ny = int(grid_shape[0]), int(grid_shape[1])
+        B, V, _, R = y.shape
+        out = torch.empty((B, nx, ny, R), dtype=y.dtype, device=y.device)
+        stats = torch.empty((B, nx, 2, R), dtype=torch.float32,
+                            device=y.device)
+        if out.numel():
+            KERNEL.launch(_fn("merge_fused", y.dtype), ptr(y), ptr(col_cy),
+                          ptr(bounds), ptr(bias_packed), ptr(out),
+                          ptr(stats), B, V, nx, ny, R,
+                          stream_handle(y.device))
+        ctx.save_for_backward(out, col_cy, bounds)
+        ctx.grid_shape, ctx.V = grid_shape, V
+        return out, stats
+
+    @staticmethod
+    def backward(ctx, g_out, g_stats):
+        out, col_cy, bounds = ctx.saved_tensors
+        dy, dbias = merge_taps_fused_backward(out, g_out, g_stats, col_cy,
+                                              bounds, ctx.V, ctx.grid_shape)
+        return dy, None, None, dbias, None
+
+
+def merge_taps_fused_backward(out: torch.Tensor, g_out: torch.Tensor,
+                              g_stats: torch.Tensor, col_cy: torch.Tensor,
+                              bounds: torch.Tensor, V: int,
+                              grid_shape: Sequence[int]
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1's backward on the card (``_merge_fused_bwd``): the pre-ReLU
+    cotangent and the bias gradient in one kernel pair, then K3's
+    backward gather of it.  out, g_out: (B, nx, ny, R); g_stats: (B, nx,
+    2, R) float32.  Returns (dy (B, V, 9, R) in out.dtype, dbias (R,)
+    float32)."""
+    nx, ny = int(grid_shape[0]), int(grid_shape[1])
+    B, R = out.shape[0], out.shape[-1]
+    if (tuple(out.shape) != (B, nx, ny, R) or g_out.shape != out.shape
+            or tuple(g_stats.shape) != (B, nx, 2, R)):
+        raise ValueError("out, g_out must be (B, nx, ny, R) and g_stats "
+                         "(B, nx, 2, R)")
+    g_out = g_out.to(out.dtype).contiguous()
+    g_stats = g_stats.to(torch.float32).contiguous()
+    pre = torch.empty_like(out)
+    partial = torch.empty((B * nx, R), dtype=torch.float32,
+                          device=out.device)
+    dbias = torch.empty((R,), dtype=torch.float32, device=out.device)
+    if out.numel():
+        BWD_KERNEL.launch(_fn("merge_fused_bwd", out.dtype), ptr(out),
+                          ptr(g_out), ptr(g_stats), ptr(pre), ptr(partial),
+                          ptr(dbias), B, nx, ny, R,
+                          stream_handle(out.device))
+    else:
+        dbias.zero_()
+    return merge_taps_backward(pre, col_cy, bounds, V, grid_shape), dbias
+
+
+# ----------------------------------------------------------- public API
+
+
+def merge_taps(y: torch.Tensor, col_cy: torch.Tensor, bounds: torch.Tensor,
+               grid_shape: Sequence[int]) -> torch.Tensor:
+    """Differentiable tap merge (K3).
 
     Args:
       y: (B, V, 9, R) per-column per-tap rows (tap t = kh*3+kw), columns
         sorted by (cx, cy); float32 or bfloat16 on the card.
       col_cy: (B, V) int32 — cy of each column slot.
       bounds: (B, nx+1) int32 — :func:`column_bounds`.
-      bias_packed: (R,) float32 — the conv bias tiled to the d-major lanes.
       grid_shape: (nx, ny, nz).
+
+    Returns (B, nx, ny, R) dense merged output in y.dtype.  Its gradient
+    is the windowed gather of ``_merge_taps_bwd``.  CPU tensors run the
+    plain version; CUDA tensors launch the kernels or raise.
+    """
+    if y.device.type == "cpu":
+        return merge_taps_plain(y, col_cy, bounds, grid_shape)
+    _check(y, col_cy, bounds, grid_shape, "merge_taps")
+    return _MergeTaps.apply(y, col_cy, bounds, tuple(grid_shape))
+
+
+def merge_taps_fused(y: torch.Tensor, col_cy: torch.Tensor,
+                     bounds: torch.Tensor, bias_packed: torch.Tensor,
+                     grid_shape: Sequence[int]
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Tap merge with the dense-conv epilogue fused in (K1).
+
+    Args are those of :func:`merge_taps` plus ``bias_packed`` (R,) — the
+    conv bias tiled to the d-major lanes, float32 on the card.
 
     Returns:
       out: (B, nx, ny, R) = relu(merge(y) + bias), y.dtype;
       stats: (B, nx, 2, R) float32 — per output row [sum, sum_sq] of out
         over ny.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel or
+    Differentiable in ``y`` and ``bias_packed`` (``_merge_fused_bwd``).
+    CPU tensors run the plain version; CUDA tensors launch the kernels or
     raise.
     """
     if y.device.type == "cpu":
         return merge_taps_fused_plain(y, col_cy, bounds, bias_packed,
                                       grid_shape)
-    if y.device.type != "cuda":
-        raise ValueError(f"merge_taps_fused: unsupported device {y.device}")
-    nx, ny = int(grid_shape[0]), int(grid_shape[1])
-    if y.dim() != 4 or y.shape[2] != 9:
-        raise ValueError(f"y must be (B, V, 9, R), got {tuple(y.shape)}")
-    B, V, _, R = y.shape
-    if y.dtype not in _LAUNCHERS:
-        raise TypeError(f"y must be float32 or bfloat16, got {y.dtype}")
-    expect = {"col_cy": (col_cy, (B, V), torch.int32),
-              "bounds": (bounds, (B, nx + 1), torch.int32),
-              "bias_packed": (bias_packed, (R,), torch.float32)}
-    for name, (t, shape, dtype) in expect.items():
-        if tuple(t.shape) != shape or t.dtype != dtype:
-            raise ValueError(f"{name} must be {shape} {dtype}, got "
-                             f"{tuple(t.shape)} {t.dtype}")
-        if t.device != y.device or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous on {y.device}")
-    if not y.is_contiguous():
-        raise ValueError("y must be contiguous")
-    if 3 * (ny + 2) * 4 > _MAX_SHARED:
-        raise ValueError(f"ny={ny} exceeds the kernel's shared-memory map")
-
-    out = torch.empty((B, nx, ny, R), dtype=y.dtype, device=y.device)
-    stats = torch.empty((B, nx, 2, R), dtype=torch.float32, device=y.device)
-    if out.numel() == 0:
-        return out, stats
-    KERNEL.launch(_LAUNCHERS[y.dtype], ptr(y), ptr(col_cy), ptr(bounds),
-                  ptr(bias_packed), ptr(out), ptr(stats), B, V, nx, ny, R,
-                  stream_handle(y.device))
-    return out, stats
+    _check(y, col_cy, bounds, grid_shape, "merge_taps_fused")
+    R = y.shape[-1]
+    if (tuple(bias_packed.shape) != (R,)
+            or bias_packed.dtype != torch.float32):
+        raise ValueError(f"bias_packed must be {(R,)} torch.float32, got "
+                         f"{tuple(bias_packed.shape)} {bias_packed.dtype}")
+    if bias_packed.device != y.device or not bias_packed.is_contiguous():
+        raise ValueError(f"bias_packed must be contiguous on {y.device}")
+    return _MergeTapsFused.apply(y, col_cy, bounds, bias_packed,
+                                 tuple(grid_shape))

@@ -1,10 +1,12 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
 Each ``csrc/*.cu`` source has a plain C interface and is compiled by
-``nvcc`` for Hopper (``sm_90a``) into its own shared library under the
-package's ``build/`` directory (listed in ``.gitignore``), then bound with
-ctypes.  A library is built on first use, or ahead of time by
-:func:`build_all`, which starts one ``nvcc`` per source at once.  The
+``nvcc`` for Hopper (``sm_90a``) into its own shared library
+(:class:`CudaLibrary`) under the package's ``build/`` directory (listed in
+``.gitignore``), then bound with ctypes.  A library is built on first use,
+or ahead of time by :func:`build_all`, which starts one ``nvcc`` per
+source at once.  A source may hold several kernels; each is a
+:class:`CudaKernel` with its own count of launches.  The
 library's file name carries a hash of its source and flags, so an edited
 source is rebuilt and never confused with an old build.
 
@@ -42,20 +44,17 @@ def nvcc_path() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
-class CudaKernel:
+class CudaLibrary:
     """One CUDA source compiled into its own shared library.
 
     ``functions`` maps each exported C function to its ctypes argtypes;
-    every function returns an ``int`` CUDA error code.  ``launches``
-    counts the launches made through :meth:`launch`.
+    every function returns an ``int`` CUDA error code.
     """
 
-    def __init__(self, name: str, source: str,
-                 functions: Dict[str, Sequence]):
-        self.name = name
+    def __init__(self, source: str, functions: Dict[str, Sequence]):
+        self.name = os.path.splitext(source)[0]
         self.source = os.path.join(CSRC, source)
         self.functions = dict(functions)
-        self.launches = 0
         self.build_seconds: Optional[float] = None
         self.build_log = ""
         self._lib = None
@@ -67,8 +66,7 @@ class CudaKernel:
         with open(self.source, "rb") as f:
             h.update(f.read())
         h.update(" ".join(NVCC_FLAGS).encode())
-        stem = os.path.splitext(os.path.basename(self.source))[0]
-        return os.path.join(BUILD_DIR, f"lib{stem}-{h.hexdigest()[:12]}.so")
+        return os.path.join(BUILD_DIR, f"lib{self.name}-{h.hexdigest()[:12]}.so")
 
     def build_command(self, output: str) -> List[str]:
         return [nvcc_path(), *NVCC_FLAGS, "-o", output, self.source]
@@ -115,9 +113,19 @@ class CudaKernel:
                 self._lib = lib
         return self._lib
 
+
+class CudaKernel:
+    """One kernel of a :class:`CudaLibrary`, with its own count of
+    launches: :meth:`launch` adds one each time it launches."""
+
+    def __init__(self, name: str, library: CudaLibrary):
+        self.name = name
+        self.library = library
+        self.launches = 0
+
     def launch(self, function: str, *args) -> None:
         """Call one exported launcher; raise if CUDA reports an error."""
-        lib = self.library()
+        lib = self.library.library()
         code = getattr(lib, function)(*args)
         if code != 0:
             msg = lib.kernel_error_string(code).decode()
@@ -128,19 +136,20 @@ class CudaKernel:
 
 
 def build_all(kernels: Sequence[CudaKernel]) -> Dict[str, dict]:
-    """Build every kernel's library, one nvcc per source, all started
-    together.  Returns per-kernel build facts (seconds, command, the
-    compiler's register/spill report)."""
-    started = {k.name: k.start_build() for k in kernels}
+    """Build the libraries of ``kernels``, one nvcc per source, all
+    started together.  Returns per-library build facts (seconds, command,
+    the compiler's register/spill report)."""
+    libs = list({id(k.library): k.library for k in kernels}.values())
+    started = [(lib, lib.start_build()) for lib in libs]
     info = {}
-    for k in kernels:
-        if started[k.name] is not None:
-            k.finish_build(started[k.name])
-        k.library()
-        info[k.name] = {
-            "seconds": k.build_seconds,
-            "cmd": " ".join(k.build_command(k.library_path)),
-            "ptxas": [ln.strip() for ln in k.build_log.splitlines()
+    for lib, s in started:
+        if s is not None:
+            lib.finish_build(s)
+        lib.library()
+        info[lib.name] = {
+            "seconds": lib.build_seconds,
+            "cmd": " ".join(lib.build_command(lib.library_path)),
+            "ptxas": [ln.strip() for ln in lib.build_log.splitlines()
                       if "registers" in ln or "spill" in ln],
         }
     return info

@@ -19,15 +19,16 @@ import torch
 
 from mvxnet_makise_tpu_torch.ops.cuda_build import (
     CudaKernel,
+    CudaLibrary,
     ptr,
     stream_handle,
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LEVEL = (_P, _I, _I, _I, _F, _F)
-KERNEL = CudaKernel(
-    "fpn_gather", "fpn_gather.cu",
-    {"fpn_gather_f32": (*(_LEVEL * 3), _P, _P, _P, _I, _I, _F, _I, _P)})
+KERNEL = CudaKernel("fpn_gather", CudaLibrary(
+    "fpn_gather.cu",
+    {"fpn_gather_f32": (*(_LEVEL * 3), _P, _P, _P, _I, _I, _F, _I, _P)}))
 
 
 def _bilerp(f00, f10, f01, f11, fr, fc, swapped: bool):

@@ -5,13 +5,14 @@ Port of the ``slot_features=False`` path of
 id, give each voxel a dense slot and each point a rank within its voxel,
 keep the first ``T`` points per voxel.  The outputs are the voxel-sorted
 point list the point-major model consumes; the (V, T, 9) slot tensor is
-never built.  Batched over a leading frame axis; no shuffle (serving is
-deterministic).
+never built.  Batched over a leading frame axis.  Training shuffles each
+cloud first (the JAX ``shuffle_key``) through an explicit permutation
+that the caller draws; serving passes none and stays deterministic.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -36,9 +37,13 @@ def voxelize(points: torch.Tensor,
              voxel_size: Sequence[float],
              grid_shape: Sequence[int],
              max_voxels: int,
-             samples_per_voxel: int) -> VoxelGrid:
+             samples_per_voxel: int,
+             perm: Optional[torch.Tensor] = None) -> VoxelGrid:
     """points: (B, P, C) ``[x, y, z, refl, img_row, img_col]`` rows, rows
-    at index >= ``num_valid`` (B,) being padding."""
+    at index >= ``num_valid`` (B,) being padding.  ``perm``: optional
+    (B, P) permutation of each frame's rows, applied first; validity
+    travels with it, so per-voxel sampling keeps the first T points in
+    permuted order."""
     B, P, _ = points.shape
     dev = points.device
     T, V = samples_per_voxel, max_voxels
@@ -46,7 +51,13 @@ def voxelize(points: torch.Tensor,
     n_cells = nx * ny * nz
 
     pos = torch.arange(P, device=dev, dtype=torch.int32)
-    was_valid = pos[None, :] < num_valid.to(dev)[:, None]
+    if perm is not None:
+        perm = perm.to(device=dev, dtype=torch.long)
+        points = torch.gather(points, 1,
+                              perm[..., None].expand(-1, -1, points.shape[-1]))
+        was_valid = perm < num_valid.to(dev)[:, None]
+    else:
+        was_valid = pos[None, :] < num_valid.to(dev)[:, None]
 
     lo = torch.tensor(velo_range[:3], dtype=points.dtype, device=dev)
     vs = torch.tensor(voxel_size, dtype=points.dtype, device=dev)
@@ -103,4 +114,6 @@ def voxelize(points: torch.Tensor,
                      sorted_points=points_s,
                      sorted_seg=torch.where(keep, seg_id, dump),
                      sorted_kept=keep,
-                     sorted_to_orig=order.to(torch.int32))
+                     sorted_to_orig=(order if perm is None else
+                                     torch.gather(perm, 1, order)
+                                     ).to(torch.int32))

@@ -1,1 +1,1 @@
-"""The batch layout the model consumes (the training step comes later)."""
+"""Training: batch layout, loss, optimizer, step, checkpoints, loop."""

@@ -1,20 +1,30 @@
-"""The device batch the point-major model consumes.
+"""The device batch, and the train and eval steps over it.
 
-Port of ``Batch``, ``frames_to_batch`` and the point-major branch of
-``_model_inputs`` from ``mvxnet_makise_tpu/train/step.py``; the train and
-eval steps come with the training slice.  The JAX package's
+Port of ``Batch``, ``frames_to_batch``, the point-major branch of
+``_model_inputs``, ``_assign_batch``, ``compute_loss``,
+``make_train_step`` and ``make_eval_step`` from
+``mvxnet_makise_tpu/train/step.py``.  The JAX package's
 ``train/state.make_apply`` runs the model once per sample; here every
-norm keeps the batch axis instead (``models/blocks.py``).
+norm keeps the batch axis instead (``models/blocks.py``).  The step runs
+eagerly: assignment, forward, loss, backward (K1's and K4's backward
+kernels on the card) and the AdamW update.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch import nn
 
 from mvxnet_makise_tpu_torch.config import Config
+from mvxnet_makise_tpu_torch.ops.assign import (
+    AnchorTargets,
+    assign_anchor_targets,
+)
 from mvxnet_makise_tpu_torch.ops.voxelize import voxelize
+from mvxnet_makise_tpu_torch.train.loss import voxel_loss
+from mvxnet_makise_tpu_torch.train.state import TrainState
 
 
 class Batch(NamedTuple):
@@ -27,27 +37,113 @@ class Batch(NamedTuple):
     sorted_kept: torch.Tensor    # (B, P) bool
     sorted_seg: torch.Tensor     # (B, P) int32
     counts: torch.Tensor         # (B, V) int32
-    gt_boxes: Optional[torch.Tensor] = None  # (B, G, 7)
-    gt_mask: Optional[torch.Tensor] = None   # (B, G) bool
+    gt_boxes: Optional[torch.Tensor] = None    # (B, G, 7)
+    gt_mask: Optional[torch.Tensor] = None     # (B, G) bool
+    gt_classes: Optional[torch.Tensor] = None  # (B, G) int; None = class 0
 
 
 def frames_to_batch(points: torch.Tensor, num_points: torch.Tensor,
                     images: torch.Tensor, cfg: Config,
                     gt_boxes: Optional[torch.Tensor] = None,
-                    gt_mask: Optional[torch.Tensor] = None) -> Batch:
+                    gt_mask: Optional[torch.Tensor] = None,
+                    gt_classes: Optional[torch.Tensor] = None,
+                    perm: Optional[torch.Tensor] = None) -> Batch:
     """Voxelize padded frames on their device.  points: (B, P, 6);
-    num_points: (B,); images: (B, H, W, 3)."""
+    num_points: (B,); images: (B, H, W, 3); ``perm``: (B, P) permutation
+    of each cloud for the training shuffle (None: no shuffle)."""
     g = voxelize(points, num_points, velo_range=cfg.velo_range,
                  voxel_size=cfg.voxel_size, grid_shape=cfg.voxel_shape,
                  max_voxels=cfg.max_voxels,
-                 samples_per_voxel=cfg.samples_per_voxel)
+                 samples_per_voxel=cfg.samples_per_voxel, perm=perm)
     return Batch(coords=g.coords, vmask=g.mask, images=images,
                  points=points, sorted_points=g.sorted_points,
                  sorted_kept=g.sorted_kept, sorted_seg=g.sorted_seg,
-                 counts=g.counts, gt_boxes=gt_boxes, gt_mask=gt_mask)
+                 counts=g.counts, gt_boxes=gt_boxes, gt_mask=gt_mask,
+                 gt_classes=gt_classes)
 
 
 def model_inputs(batch: Batch):
     """Arguments of ``MVXNetPM.forward`` in order."""
     return (batch.sorted_points, batch.sorted_kept, batch.sorted_seg,
             batch.counts, batch.coords, batch.vmask, batch.images)
+
+
+def _assign_batch(batch: Batch, cfg: Config) -> AnchorTargets:
+    """Targets of every frame, stacked: fields (B, H, W, A)."""
+    classes = batch.gt_classes
+    if classes is None:
+        classes = torch.zeros(batch.gt_mask.shape, dtype=torch.int32,
+                              device=batch.gt_mask.device)
+    per_frame = [assign_anchor_targets(
+        boxes, mask, grid_hw=cfg.feature_map_shape,
+        velo_range=cfg.velo_range, box_size=cfg.anchor_sizes,
+        neg_threshold=cfg.class_neg_thresholds,
+        pos_threshold=cfg.class_pos_thresholds, window=cfg.assign_window,
+        gt_classes=cls,
+        best_anchor_fallback=cfg.assign_best_anchor_fallback)
+        for boxes, mask, cls in zip(batch.gt_boxes, batch.gt_mask, classes)]
+    return AnchorTargets(*(torch.stack(f) for f in zip(*per_frame)))
+
+
+def compute_loss(model: nn.Module, batch: Batch, targets: AnchorTargets,
+                 anchors: torch.Tensor, cfg: Config
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean over frames of :func:`voxel_loss`, and the mean of each
+    metric.  The maps enter the loss in at least float32, as JAX casts
+    them to float32; a float64 model keeps float64."""
+    score, reg = model(*model_inputs(batch))
+    dtype = torch.promote_types(score.dtype, torch.float32)
+    score, reg = score.to(dtype), reg.to(dtype)
+    anchors = anchors.to(dtype)
+    losses, metrics = [], []
+    for b in range(score.shape[0]):
+        loss, m = voxel_loss(
+            score[b], reg[b], AnchorTargets(*(f[b] for f in targets)),
+            batch.gt_boxes[b].to(dtype), anchors,
+            pos_weight=cfg.pos_loss_weight, neg_weight=cfg.neg_loss_weight,
+            eps=cfg.eps, mode=cfg.cls_loss_mode,
+            focal_gamma=cfg.focal_gamma, focal_alpha=cfg.focal_alpha)
+        losses.append(loss)
+        metrics.append(m)
+    return (torch.stack(losses).mean(),
+            {k: torch.stack([m[k] for m in metrics]).to(dtype).mean()
+             for k in metrics[0]})
+
+
+def make_train_step(cfg: Config, anchors: torch.Tensor
+                    ) -> Callable[[TrainState, Batch], Dict[str, torch.Tensor]]:
+    """The train step: assign, forward, loss, backward, AdamW update.
+    ``anchors``: (H, W, A, 7) on the model's device.
+
+    ``step(state, batch)`` updates ``state`` in place and returns the
+    metrics.  A non-finite loss leaves the parameters, the optimizer state
+    and the step count (and so the schedule) as they were, and reports
+    ``skipped_nonfinite`` = 1."""
+
+    def train_step(state: TrainState, batch: Batch
+                   ) -> Dict[str, torch.Tensor]:
+        targets = _assign_batch(batch, cfg)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, metrics = compute_loss(state.model, batch, targets, anchors,
+                                     cfg)
+        loss.backward()
+        finite = bool(torch.isfinite(loss))
+        if finite:
+            state.apply_gradients()
+        return dict(metrics, total_loss=loss.detach(),
+                    skipped_nonfinite=torch.tensor(int(not finite)))
+
+    return train_step
+
+
+def make_eval_step(cfg: Config
+                   ) -> Callable[[nn.Module, Batch],
+                                 Tuple[torch.Tensor, torch.Tensor]]:
+    """Forward-only step returning float32 (score, reg) maps."""
+
+    @torch.no_grad()
+    def eval_step(model: nn.Module, batch: Batch):
+        score, reg = model(*model_inputs(batch))
+        return score.float(), reg.float()
+
+    return eval_step

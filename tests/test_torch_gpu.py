@@ -7,9 +7,13 @@ that has only PyTorch:
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest
 
-Tolerances: K1 sums the same taps in the same order as its plain version
-(1e-5 on float32; bfloat16 outputs round to 8 bits, 2e-2); K2 rounds its
-four weighted taps in another order (1e-5).
+Tolerances: K1 and K3 sum the same taps in the same order as their plain
+versions (1e-5 on float32; bfloat16 outputs round to 8 bits, 2e-2); K2
+rounds its four weighted taps in another order (1e-5).  K1's backward
+forms the pre-ReLU cotangent with its adds in another order than
+autograd (1e-5) and sums the bias gradient over every cell in another
+order (1e-4 of the largest value).  K4 and K3's backward copy values:
+exact.
 """
 
 import numpy as np
@@ -19,9 +23,22 @@ import torch
 from mvxnet_makise_tpu_torch.config import Config
 from mvxnet_makise_tpu_torch.data.synthetic import synthetic_frame
 from mvxnet_makise_tpu_torch.models.mvxnet import build_model
-from mvxnet_makise_tpu_torch.ops import column_merge, gather
+from mvxnet_makise_tpu_torch.ops import column_merge, gather, scatter_grid
+from mvxnet_makise_tpu_torch.ops.assign import create_anchors
+from mvxnet_makise_tpu_torch.ops.scatter import scatter_voxels_to_grid
 from mvxnet_makise_tpu_torch.serve import Detector
-from mvxnet_makise_tpu_torch.train.step import frames_to_batch, model_inputs
+from mvxnet_makise_tpu_torch.train import checkpoint as ckpt
+from mvxnet_makise_tpu_torch.train.loop import (
+    Frame,
+    collate,
+    preprocess_train_frame,
+)
+from mvxnet_makise_tpu_torch.train.state import TrainState
+from mvxnet_makise_tpu_torch.train.step import (
+    frames_to_batch,
+    make_train_step,
+    model_inputs,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -94,6 +111,132 @@ def test_merge_kernel_refuses_what_it_does_not_take(cuda):
         column_merge.merge_taps_fused(y, col_cy, bounds.long(), bias, GRID)
     with pytest.raises(TypeError):
         column_merge.merge_taps_fused(y.half(), col_cy, bounds, bias, GRID)
+
+
+def _merge_backward_inputs(cuda, R, dtype, seed=2):
+    y, col_cy, bounds, bias = [torch.from_numpy(a).to(cuda)
+                               for a in _columns(seed, R)]
+    y = y.to(dtype).requires_grad_()
+    bias = bias.requires_grad_()
+    g = torch.Generator().manual_seed(seed)
+    g_out = torch.randn((2, *GRID[:2], R), generator=g).to(cuda, dtype)
+    g_stats = torch.randn((2, GRID[0], 2, R), generator=g).to(cuda) * 0.1
+    return y, col_cy, bounds, bias, g_out, g_stats
+
+
+@pytest.mark.parametrize("R", [6, 320])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_merge_backward_kernel_matches_plain(cuda, R, dtype, tol):
+    """K1's backward (pre and dbias kernels, then K3's gather) against
+    ``_merge_fused_bwd``'s formula on the kernel's own output, with dy by
+    autograd through the plain merge; in float32 also against autograd
+    through the whole plain version.  (In bfloat16 the kernel adds the bias
+    to the float32 sum and the plain version to the sum rounded to
+    bfloat16, so a cell near 0 can change sign, and with it the ReLU
+    mask.)"""
+    y, col_cy, bounds, bias, g_out, g_stats = _merge_backward_inputs(
+        cuda, R, dtype)
+    counts = [k.launches for k in column_merge.KERNELS]
+    out, stats = column_merge.merge_taps_fused(y, col_cy, bounds, bias, GRID)
+    dy, dbias = torch.autograd.grad((out, stats), (y, bias),
+                                    (g_out, g_stats))
+    assert [k.launches - c for k, c in
+            zip(column_merge.KERNELS, counts)] == [1, 1, 0, 1]
+    assert dy.dtype == dtype and dbias.dtype == torch.float32
+    o = out.detach().float()
+    pre = ((g_out.float() + g_stats[:, :, 0, None].to(dtype).float()
+            + 2 * o * g_stats[:, :, 1, None].to(dtype).float())
+           * (o > 0)).to(dtype)
+    wants = [(torch.autograd.grad(column_merge.merge_taps_plain(
+        y, col_cy, bounds, GRID), y, pre)[0], pre.float().sum((0, 1, 2)))]
+    if dtype == torch.float32:
+        want_out, want_stats = column_merge.merge_taps_fused_plain(
+            y, col_cy, bounds, bias, GRID)
+        wants.append(torch.autograd.grad((want_out, want_stats), (y, bias),
+                                         (g_out, g_stats)))
+    torch.cuda.synchronize()
+    for want_dy, want_dbias in wants:
+        torch.testing.assert_close(dy.float(), want_dy.float(), rtol=tol,
+                                   atol=tol)
+        scale = max(1.0, float(want_dbias.abs().max()))
+        assert float((dbias - want_dbias).abs().max()) <= 10 * tol * scale
+    # no atomics: the same cotangents give the same bits
+    dy2, dbias2 = column_merge.merge_taps_fused_backward(
+        out.detach(), g_out, g_stats, col_cy, bounds, y.shape[1], GRID)
+    assert torch.equal(dy2, dy) and torch.equal(dbias2, dbias)
+
+
+@pytest.mark.parametrize("R", [6, 320])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_merge_taps_kernel_matches_plain(cuda, R, dtype, tol):
+    """K3 forward (K1's kernel without its epilogue) and backward."""
+    y, col_cy, bounds, _, g_out, _ = _merge_backward_inputs(cuda, R, dtype,
+                                                            seed=3)
+    before = (column_merge.TAPS_KERNEL.launches,
+              column_merge.TAPS_BWD_KERNEL.launches)
+    out = column_merge.merge_taps(y, col_cy, bounds, GRID)
+    (dy,) = torch.autograd.grad(out, y, g_out)
+    assert (column_merge.TAPS_KERNEL.launches,
+            column_merge.TAPS_BWD_KERNEL.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    want = column_merge.merge_taps_plain(y, col_cy, bounds, GRID)
+    (want_dy,) = torch.autograd.grad(want, y, g_out)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol,
+                               atol=tol)
+    torch.testing.assert_close(dy, want_dy, rtol=0, atol=0)
+    # the empty frame merges to 0
+    assert not out[0].any()
+
+
+def _voxels(seed, C, dtype, B=2, V=300, grid=(24, 40, 10)):
+    """Voxel rows at unique random cells, unsorted, a third masked off
+    (their coords point at real cells that must stay 0)."""
+    rng = np.random.default_rng(seed)
+    nx, ny, nz = grid
+    coords = np.zeros((B, V, 3), np.int32)
+    for b in range(B):
+        cells = rng.choice(nx * ny * nz, V, replace=False)
+        coords[b] = np.stack([(cells // ny) % nx, cells % ny,
+                              cells // (nx * ny)], -1)
+    mask = rng.random((B, V)) < 0.67
+    feats = torch.from_numpy(rng.normal(size=(B, V, C)).astype(np.float32))
+    return feats.to(dtype), torch.from_numpy(coords), torch.from_numpy(mask)
+
+
+@pytest.mark.parametrize("C,dtype", [(128, torch.float32),
+                                     (8, torch.bfloat16)])
+def test_scatter_grid_kernel_matches_plain(cuda, C, dtype):
+    grid = (24, 40, 10)
+    feats, coords, mask = [t.to(cuda) for t in _voxels(4, C, dtype)]
+    feats.requires_grad_()
+    before = (scatter_grid.KERNEL.launches, scatter_grid.BWD_KERNEL.launches)
+    got = scatter_grid.scatter_to_grid(feats, coords, mask, grid)
+    g = torch.randn(got.shape, generator=torch.Generator().manual_seed(0)
+                    ).to(cuda, dtype)
+    (d,) = torch.autograd.grad(got, feats, g)
+    assert (scatter_grid.KERNEL.launches,
+            scatter_grid.BWD_KERNEL.launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    want = scatter_voxels_to_grid(feats, coords, mask, grid)
+    (want_d,) = torch.autograd.grad(want, feats, g)
+    torch.cuda.synchronize()
+    assert got.shape == (2, 10, 24, 40, C)
+    assert torch.equal(got, want) and torch.equal(d, want_d)
+    assert int((got != 0).any(-1).sum()) == int(mask.sum())
+
+
+def test_scatter_grid_refuses_what_it_does_not_take(cuda):
+    feats, coords, mask = [t.to(cuda) for t in _voxels(5, 6, torch.float32)]
+    with pytest.raises(ValueError, match="16-byte"):
+        scatter_grid.scatter_to_grid(feats, coords, mask, (24, 40, 10))
+    feats, coords, mask = [t.to(cuda) for t in _voxels(5, 8, torch.float32)]
+    with pytest.raises(ValueError, match="coords"):
+        scatter_grid.scatter_to_grid(feats, coords.long(), mask,
+                                     (24, 40, 10))
 
 
 def _gather_inputs(seed, B=2, P=300, C=256):
@@ -179,3 +322,96 @@ def test_detector_on_card_matches_cpu(cuda):
         np.testing.assert_array_equal(a.scores, b.scores)
     for d in (gpu, cpu, ref):
         d.close()
+
+
+def _train_batch(cfg, device, dtype=torch.float32):
+    """Two synthetic frames with axis-aligned cars (so the regression
+    head has positives) as a batch on ``device``, fixed shuffle."""
+    rng = np.random.default_rng(5)
+    arrays = []
+    for i in range(2):
+        pts, calib, image, boxes = synthetic_frame(
+            rng, cfg, num_cars=3, num_points=1200, yaw_range=(0.0, 0.0))
+        arrays.append(preprocess_train_frame(
+            Frame(f"f{i}", pts, image, calib, {"Car": boxes}), cfg,
+            np.random.default_rng(i)))
+    pts, nums, imgs, gts, gms, gcs = collate(arrays, device)
+    gen = torch.Generator().manual_seed(0)
+    perm = torch.stack([torch.randperm(cfg.max_points, generator=gen)
+                        for _ in range(2)]).to(device)
+    return frames_to_batch(pts.to(dtype), nums, imgs.to(dtype), cfg,
+                           gt_boxes=gts.to(dtype), gt_mask=gms,
+                           gt_classes=gcs, perm=perm)
+
+
+def test_gradient_reaches_every_layer_on_card(cuda):
+    """A loss through MVXNetPM on the card gives every trainable
+    parameter a gradient: CML conv1, the VFE stack and the fusion MLP sit
+    before K1, whose output must carry its backward."""
+    model = build_model(TINY, seed=3, device=cuda).train()
+    score, reg = model(*model_inputs(_train_batch(TINY, cuda)))
+    (score.square().sum() + reg.square().sum()).backward()
+    missing = [n for n, p in model.named_parameters()
+               if "extractor" not in n and (p.grad is None
+                                            or not p.grad.any())]
+    assert not missing
+
+
+@pytest.mark.parametrize("mode", ["column", "dense3d"])
+def test_train_step_on_card_matches_cpu(cuda, mode, tmp_path):
+    """One train step on the card against the same step in float64 on the
+    CPU: the loss and each gradient at most 10x as far as the CPU's own
+    float32 step (floor 1e-2 for a gradient: an untrained model's float32
+    gradients sit ~5 % from float64 on any device, and a few closer on the
+    CPU only because its float32 and float64 runs sum in one order).  The
+    path's kernels launch, and a checkpoint of the card state restores
+    bit-identically."""
+    cfg = TINY.replace(batch_size=2, cml_mode=mode,
+                       scatter_backend="pallas" if mode == "dense3d"
+                       else "auto")
+    weights = build_model(cfg, seed=4, device="cpu").state_dict()
+    anchors = torch.from_numpy(create_anchors(
+        cfg.feature_map_shape, cfg.velo_range, cfg.anchor_sizes))
+    kernels = [*column_merge.KERNELS, *scatter_grid.KERNELS, gather.KERNEL]
+    runs = {}
+    for name, dev, dtype in (("card", cuda, torch.float32),
+                             ("cpu32", torch.device("cpu"), torch.float32),
+                             ("cpu64", torch.device("cpu"), torch.float64)):
+        model = build_model(cfg, seed=None, device=dev)
+        model.load_state_dict(weights)
+        model = model.to(dtype).train()
+        state = TrainState.create(cfg, model)
+        for k in kernels:
+            k.launches = 0
+        m = make_train_step(cfg, anchors.to(dev, dtype))(
+            state, _train_batch(cfg, dev, dtype))
+        launches = {k.name: k.launches for k in kernels}
+        runs[name] = (float(m["total_loss"]),
+                      {n: p.grad.double().cpu()
+                       for n, p in model.named_parameters()
+                       if p.grad is not None}, launches, state)
+    loss64, g64 = runs["cpu64"][:2]
+    assert float(g64["backbone.rpn.reg.weight"].abs().max()) > 0
+    card, cpu = runs["card"], runs["cpu32"]
+    assert card[1].keys() == g64.keys()
+    assert abs(card[0] - loss64) <= max(10 * abs(cpu[0] - loss64),
+                                        1e-6 * abs(loss64))
+    for k in g64:
+        d_card = float((card[1][k] - g64[k]).norm() / g64[k].norm())
+        d_cpu = float((cpu[1][k] - g64[k]).norm() / g64[k].norm())
+        assert d_card <= max(10 * d_cpu, 1e-2), k
+    on_path = (("column_merge", "column_merge_bwd", "merge_taps_bwd")
+               if mode == "column" else ("scatter_grid", "scatter_grid_bwd"))
+    assert all(card[2][n] == 1 for n in on_path + ("fpn_gather",))
+    assert all(n in on_path + ("fpn_gather",) or c == 0
+               for n, c in card[2].items())
+    assert all(c == 0 for c in cpu[2].values())
+
+    state = card[3]
+    ckpt.save_checkpoint(str(tmp_path), 1, state)
+    other = TrainState.create(cfg, build_model(cfg, seed=5, device=cuda))
+    ckpt.restore_checkpoint(str(tmp_path), 1, other)
+    assert other.step == state.step == 1
+    for a, b in zip(state.model.state_dict().values(),
+                    other.model.state_dict().values()):
+        assert torch.equal(a, b)

@@ -56,3 +56,36 @@ def test_voxelize_matches_jax(seed):
         np.testing.assert_array_equal(
             getattr(got, name).numpy(), np.asarray(getattr(want, name)),
             err_msg=name)
+
+
+def test_voxelize_with_permutation_matches_jax():
+    """The training shuffle: JAX's ``jax.random.permutation`` of each
+    frame, handed to the port as an explicit permutation."""
+    pts, nums = _clouds(2)
+    keys = jax.random.split(jax.random.key(7), len(pts))
+    perm = np.stack([np.asarray(jax.random.permutation(k, CFG.max_points))
+                     for k in keys])
+    want = jax.vmap(lambda p, n, k: jax_voxelize(
+        p, n, velo_range=CFG.velo_range, voxel_size=CFG.voxel_size,
+        grid_shape=CFG.voxel_shape, max_voxels=CFG.max_voxels,
+        samples_per_voxel=CFG.samples_per_voxel, shuffle_key=k,
+        slot_features=False))(jnp.asarray(pts), jnp.asarray(nums), keys)
+    got = voxelize(torch.from_numpy(pts), torch.from_numpy(nums),
+                   velo_range=CFG.velo_range, voxel_size=CFG.voxel_size,
+                   grid_shape=CFG.voxel_shape, max_voxels=CFG.max_voxels,
+                   samples_per_voxel=CFG.samples_per_voxel,
+                   perm=torch.from_numpy(perm))
+    unshuffled = voxelize(torch.from_numpy(pts), torch.from_numpy(nums),
+                          velo_range=CFG.velo_range,
+                          voxel_size=CFG.voxel_size,
+                          grid_shape=CFG.voxel_shape,
+                          max_voxels=CFG.max_voxels,
+                          samples_per_voxel=CFG.samples_per_voxel)
+    # the shuffle changes which points a full voxel keeps
+    assert not torch.equal(got.sorted_to_orig, unshuffled.sorted_to_orig)
+    for name in ("coords", "counts", "num_voxels", "mask", "num_kept",
+                 "sorted_points", "sorted_seg", "sorted_kept",
+                 "sorted_to_orig"):
+        np.testing.assert_array_equal(
+            getattr(got, name).numpy(), np.asarray(getattr(want, name)),
+            err_msg=name)
