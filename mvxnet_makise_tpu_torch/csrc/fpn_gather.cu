@@ -27,7 +27,10 @@
 // segments.  No shared memory and no atomics.
 
 #include <cuda_runtime.h>
+
 #include <cstdint>
+
+#include "launch_record.cuh"
 
 namespace {
 
@@ -125,11 +128,14 @@ int fpn_gather_f32(const void* f0, int H0, int W0, int C0, float ry0,
     const int threads = 256;                      // 8 points per block
     const long long warps = (long long)B * P;
     const long long blocks = (warps * 32 + threads - 1) / threads;
+    clear_launches();
     fpn_gather_kernel<<<(unsigned)blocks, threads, 0,
                         (cudaStream_t)stream>>>(
         L, (const float*)rc, (const uint8_t*)valid, (float*)out, B, P,
         C0 + C1 + C2, eps, swapped);
-    return (int)cudaGetLastError();
+    const int err = (int)cudaGetLastError();
+    record_launch(fpn_gather_kernel, dim3((unsigned)blocks), dim3(threads), 0);
+    return err;
 }
 
 const char* kernel_error_string(int code) {

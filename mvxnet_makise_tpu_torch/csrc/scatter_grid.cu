@@ -32,7 +32,10 @@
 // bytes works.  The backward gives one warp to each row.
 
 #include <cuda_runtime.h>
+
 #include <cstdint>
+
+#include "launch_record.cuh"
 
 namespace {
 
@@ -111,12 +114,16 @@ int scatter_grid(const void* features, const void* order,
                  int B, int V, int n_cells, int chunk, int row_bytes,
                  void* stream) {
     const dim3 blocks((n_cells + chunk - 1) / chunk, B);
+    clear_launches();
     scatter_grid_kernel<<<blocks, THREADS, chunk * sizeof(int32_t),
                           (cudaStream_t)stream>>>(
         (const uint4*)features, (const int32_t*)order,
         (const int32_t*)sorted_cell, (const int32_t*)starts, (uint4*)grid,
         V, n_cells, chunk, row_bytes / 16);
-    return (int)cudaGetLastError();
+    const int err = (int)cudaGetLastError();
+    record_launch(scatter_grid_kernel, blocks, dim3(THREADS),
+                  chunk * sizeof(int32_t));
+    return err;
 }
 
 // g (B, nz*nx*ny, C); coords (B, V, 3) int32 (ix, iy, iz); mask (B, V)
@@ -126,10 +133,13 @@ int scatter_grid_bwd(const void* g, const void* coords, const void* mask,
                      int row_bytes, void* stream) {
     const int rows = B * V;
     const int blocks = (rows + WARPS - 1) / WARPS;
+    clear_launches();
     scatter_grid_bwd_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
         (const uint4*)g, (const int32_t*)coords, (const uint8_t*)mask,
         (uint4*)d_features, rows, V, nx, ny, nz, row_bytes / 16);
-    return (int)cudaGetLastError();
+    const int err = (int)cudaGetLastError();
+    record_launch(scatter_grid_bwd_kernel, dim3(blocks), dim3(THREADS), 0);
+    return err;
 }
 
 const char* kernel_error_string(int code) {

@@ -27,22 +27,34 @@ from mvxnet_makise_tpu_torch.ops.cuda_build import (
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_FUSED = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
+_FUSED = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
 _TAPS = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
 _FUSED_BWD = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 LIBRARY = CudaLibrary("column_merge.cu", {
-    f"{fn}_{suffix}": args for suffix in _DTYPES.values()
-    for fn, args in (("merge_fused", _FUSED), ("merge_taps", _TAPS),
-                     ("merge_fused_bwd", _FUSED_BWD),
-                     ("merge_taps_bwd", _TAPS))})
+    **{f"{fn}_{suffix}": args for suffix in _DTYPES.values()
+       for fn, args in (("merge_fused", _FUSED), ("merge_taps", _TAPS),
+                        ("merge_fused_bwd", _FUSED_BWD),
+                        ("merge_taps_bwd", _TAPS))},
+    "merge_launch_facts": (_I, _I, _I, _I, _P)})
 KERNEL = CudaKernel("column_merge", LIBRARY)          # K1 forward
 BWD_KERNEL = CudaKernel("column_merge_bwd", LIBRARY)  # K1 backward: pre, dbias
 TAPS_KERNEL = CudaKernel("merge_taps", LIBRARY)       # K3 forward
 TAPS_BWD_KERNEL = CudaKernel("merge_taps_bwd", LIBRARY)  # K3 backward (dy)
 KERNELS = (KERNEL, BWD_KERNEL, TAPS_KERNEL, TAPS_BWD_KERNEL)
-# the forward kernels keep 3 x (ny + 2) int32 slot ids in shared memory
-_MAX_SHARED = 48 * 1024
+# shared memory one block may take on the card (227 KB); the forward keeps
+# a tile's slot map there, and K1 its row-statistics partials
+_MAX_SHARED = 232448
+
+
+def launch_facts(y: torch.Tensor, ny: int, fused: bool) -> Tuple[int, int]:
+    """(shared bytes per block, oy tiles per row) of the forward kernel's
+    launch for y's dtype and lane count; K1 takes a scratch of (B, nx,
+    tiles, 2, R) float32 partial row statistics."""
+    facts = (ctypes.c_int * 2)()
+    LIBRARY.library().merge_launch_facts(int(fused), y.element_size(), ny,
+                                         y.shape[-1], facts)
+    return facts[0], facts[1]
 
 
 def column_bounds(col_xy: torch.Tensor, col_mask: torch.Tensor,
@@ -113,7 +125,7 @@ def merge_taps_fused_plain(y: torch.Tensor, col_cy: torch.Tensor,
 
 
 def _check(y: torch.Tensor, col_cy: torch.Tensor, bounds: torch.Tensor,
-           grid_shape: Sequence[int], name: str) -> None:
+           grid_shape: Sequence[int], name: str, fused: bool) -> None:
     if y.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {y.device}")
     nx, ny = int(grid_shape[0]), int(grid_shape[1])
@@ -131,8 +143,10 @@ def _check(y: torch.Tensor, col_cy: torch.Tensor, bounds: torch.Tensor,
             raise ValueError(f"{arg} must be contiguous on {y.device}")
     if not y.is_contiguous():
         raise ValueError("y must be contiguous")
-    if 3 * (ny + 2) * 4 > _MAX_SHARED:
-        raise ValueError(f"ny={ny} exceeds the kernel's shared-memory map")
+    need, _ = launch_facts(y, ny, fused)
+    if need > _MAX_SHARED:
+        raise ValueError(f"ny={ny}, R={y.shape[-1]}: the kernel would need "
+                         f"{need} bytes of shared memory per block")
 
 
 def _fn(stem: str, dtype: torch.dtype) -> str:
@@ -185,9 +199,14 @@ class _MergeTapsFused(torch.autograd.Function):
         stats = torch.empty((B, nx, 2, R), dtype=torch.float32,
                             device=y.device)
         if out.numel():
+            # each oy tile's row statistics, summed by the kernel's second
+            # pass
+            _, tiles = launch_facts(y, ny, fused=True)
+            partial = torch.empty((B, nx, tiles, 2, R), dtype=torch.float32,
+                                  device=y.device)
             KERNEL.launch(_fn("merge_fused", y.dtype), ptr(y), ptr(col_cy),
                           ptr(bounds), ptr(bias_packed), ptr(out),
-                          ptr(stats), B, V, nx, ny, R,
+                          ptr(stats), ptr(partial), B, V, nx, ny, R,
                           stream_handle(y.device))
         ctx.save_for_backward(out, col_cy, bounds)
         ctx.grid_shape, ctx.V = grid_shape, V
@@ -253,7 +272,7 @@ def merge_taps(y: torch.Tensor, col_cy: torch.Tensor, bounds: torch.Tensor,
     """
     if y.device.type == "cpu":
         return merge_taps_plain(y, col_cy, bounds, grid_shape)
-    _check(y, col_cy, bounds, grid_shape, "merge_taps")
+    _check(y, col_cy, bounds, grid_shape, "merge_taps", fused=False)
     return _MergeTaps.apply(y, col_cy, bounds, tuple(grid_shape))
 
 
@@ -278,7 +297,7 @@ def merge_taps_fused(y: torch.Tensor, col_cy: torch.Tensor,
     if y.device.type == "cpu":
         return merge_taps_fused_plain(y, col_cy, bounds, bias_packed,
                                       grid_shape)
-    _check(y, col_cy, bounds, grid_shape, "merge_taps_fused")
+    _check(y, col_cy, bounds, grid_shape, "merge_taps_fused", fused=True)
     R = y.shape[-1]
     if (tuple(bias_packed.shape) != (R,)
             or bias_packed.dtype != torch.float32):

@@ -12,7 +12,10 @@ source is rebuilt and never confused with an old build.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :meth:`CudaKernel.launch` raises on a nonzero
-code and counts the launch.
+code and counts the launch.  Each library also keeps what its last entry
+point launched (``csrc/launch_record.cuh``): grid, block, shared memory
+and the registers ptxas gave each kernel, which
+:meth:`CudaKernel.launch` reads back into ``last_launch``.
 """
 
 from __future__ import annotations
@@ -34,6 +37,11 @@ BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-lineinfo", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+# fields of one launch in the record of csrc/launch_record.cuh
+LAUNCH_FIELDS = (("grid", 3), ("block", 3), ("shared_bytes", 1),
+                 ("registers", 1), ("local_bytes", 1),
+                 ("static_shared_bytes", 1))
+_MAX_LAUNCHES = 4
 
 
 def nvcc_path() -> str:
@@ -63,8 +71,12 @@ class CudaLibrary:
     @property
     def library_path(self) -> str:
         h = hashlib.sha256()
-        with open(self.source, "rb") as f:
-            h.update(f.read())
+        # the source and the headers it may include
+        for path in [self.source] + sorted(
+                os.path.join(CSRC, n) for n in os.listdir(CSRC)
+                if n.endswith(".cuh")):
+            with open(path, "rb") as f:
+                h.update(f.read())
         h.update(" ".join(NVCC_FLAGS).encode())
         return os.path.join(BUILD_DIR, f"lib{self.name}-{h.hexdigest()[:12]}.so")
 
@@ -110,8 +122,26 @@ class CudaLibrary:
                     getattr(lib, fn).restype = ctypes.c_int
                 lib.kernel_error_string.argtypes = [ctypes.c_int]
                 lib.kernel_error_string.restype = ctypes.c_char_p
+                lib.last_launches.argtypes = [ctypes.c_void_p, ctypes.c_int]
+                lib.last_launches.restype = ctypes.c_int
                 self._lib = lib
         return self._lib
+
+
+def read_launches(lib) -> List[dict]:
+    """What a loaded library's last entry point launched, one dict per
+    kernel (see ``LAUNCH_FIELDS``)."""
+    width = sum(n for _, n in LAUNCH_FIELDS)
+    buf = (ctypes.c_int * (width * _MAX_LAUNCHES))()
+    n = lib.last_launches(buf, _MAX_LAUNCHES)
+    out = []
+    for k in range(n):
+        vals, rec = list(buf[k * width:(k + 1) * width]), {}
+        for name, count in LAUNCH_FIELDS:
+            rec[name] = vals[:count] if count > 1 else vals[0]
+            vals = vals[count:]
+        out.append(rec)
+    return out
 
 
 class CudaKernel:
@@ -122,6 +152,7 @@ class CudaKernel:
         self.name = name
         self.library = library
         self.launches = 0
+        self.last_launch: List[dict] = []
 
     def launch(self, function: str, *args) -> None:
         """Call one exported launcher; raise if CUDA reports an error."""
@@ -133,6 +164,7 @@ class CudaKernel:
                 f"{self.name}: {function} failed with CUDA error {code} "
                 f"({msg})")
         self.launches += 1
+        self.last_launch = read_launches(lib)
 
 
 def build_all(kernels: Sequence[CudaKernel]) -> Dict[str, dict]:

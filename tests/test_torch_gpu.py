@@ -8,7 +8,8 @@ that has only PyTorch:
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest
 
 Tolerances: K1 and K3 sum the same taps in the same order as their plain
-versions (1e-5 on float32; bfloat16 outputs round to 8 bits, 2e-2); K2
+versions (1e-5 on float32, or exact where a test says so; bfloat16 outputs
+round to 8 bits, 2e-2); K2
 rounds its four weighted taps in another order (1e-5).  K1's backward
 forms the pre-ReLU cotangent with its adds in another order than
 autograd (1e-5) and sums the bias gradient over every cell in another
@@ -59,17 +60,24 @@ def cuda():
     return torch.device("cuda")
 
 
-def _columns(seed, R, B=2, V=160):
+def _columns(seed, R, B=2, V=160, grid=GRID):
     """Sorted active BEV columns: frame 0 empty, frame 1 with one whole
-    BEV row filled (many columns per row) plus random cells."""
+    BEV row filled (many columns per row), columns on all four grid
+    borders and corners, and random cells; the slots past the last column
+    are dead and carry nonzero rows."""
     rng = np.random.default_rng(seed)
-    nx, ny, _ = GRID
+    nx, ny, _ = grid
     col_cy = np.zeros((B, V), np.int32)
     bounds = np.zeros((B, nx + 1), np.int32)
+    mid_x, mid_y = nx // 2, ny // 2
+    border = np.array([0, ny - 1, (nx - 1) * ny, nx * ny - 1,
+                       mid_y, (nx - 1) * ny + mid_y, mid_x * ny,
+                       mid_x * ny + ny - 1])
     for b in range(1, B):
-        cells = rng.choice(nx * ny, V // 2, replace=False)
+        cells = rng.choice(nx * ny, min(V // 2, nx * ny), replace=False)
         cells = np.unique(np.concatenate(
-            [rng.integers(0, nx) * ny + np.arange(ny), cells]))[:V]
+            [rng.integers(0, nx) * ny + np.arange(ny), border, cells]))
+        assert len(cells) <= V - 8
         col_cy[b, :len(cells)] = cells % ny
         bounds[b] = np.searchsorted(cells // ny, np.arange(nx + 1))
     y = rng.normal(size=(B, V, 9, R)).astype(np.float32)
@@ -98,6 +106,71 @@ def test_merge_kernel_matches_plain(cuda, R, dtype, tol):
     torch.testing.assert_close(
         out[0].float(), torch.relu(bias).to(dtype).float().expand(
             *GRID[:2], R), rtol=0, atol=0)
+    # the row statistics are summed in a fixed order: the same bits twice
+    out2, stats2 = column_merge.merge_taps_fused(y, col_cy, bounds, bias,
+                                                 GRID)
+    assert torch.equal(out2, out) and torch.equal(stats2, stats)
+
+
+# grids whose ny is no multiple of the forward's oy tile (ny / 4 rounded
+# up) nor of its cell groups, a full-width row of 400 cells, and a row
+# narrower than the four tiles
+EDGE_GRIDS = [(8, 37, 10), (4, 400, 10), (5, 3, 10)]
+
+
+@pytest.mark.parametrize("grid", EDGE_GRIDS)
+@pytest.mark.parametrize("R", [6, 320])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_merge_kernels_edge_shapes(cuda, grid, R, dtype, misaligned):
+    """K1, K3 and K3's backward on edge shapes, on the vector path (R =
+    320, 16-byte rows) and the scalar one (R = 6, or any y that does not
+    start on a 16-byte boundary).  In float32 K1's and K3's outputs are
+    bit-equal to the plain versions (same adds in the same order) and the
+    row statistics within 1e-5; in bfloat16 K1 adds the bias to the
+    float32 sum, the plain version to the sum rounded to bfloat16, which
+    moves out by a rounding step (2e-2) and the statistics by up to 2e-2
+    relative (2e-1 absolute), as in test_merge_kernel_matches_plain.  K3
+    adds and rounds as the plain version does in both types, and its
+    backward copies: exact."""
+    V = grid[0] * grid[1] + 16
+    y, col_cy, bounds, bias = [torch.from_numpy(a).to(cuda) for a in
+                               _columns(7, R, V=V, grid=grid)]
+    y = y.to(dtype)
+    if misaligned:
+        # the same values one element into a fresh buffer
+        buf = torch.empty(y.numel() + 1, dtype=dtype, device=cuda)
+        buf[1:] = y.reshape(-1)
+        y = buf[1:].view(y.shape)
+        assert y.data_ptr() % 16 and y.is_contiguous()
+    y.requires_grad_()
+    out, stats = column_merge.merge_taps_fused(y, col_cy, bounds, bias, grid)
+    out2, stats2 = column_merge.merge_taps_fused(y, col_cy, bounds, bias,
+                                                 grid)
+    want_out, want_stats = column_merge.merge_taps_fused_plain(
+        y, col_cy, bounds, bias, grid)
+    merged = column_merge.merge_taps(y, col_cy, bounds, grid)
+    want_merged = column_merge.merge_taps_plain(y, col_cy, bounds, grid)
+    g = torch.randn(merged.shape, generator=torch.Generator().manual_seed(1)
+                    ).to(cuda, dtype)
+    (dy,) = torch.autograd.grad(merged, y, g)
+    (want_dy,) = torch.autograd.grad(want_merged, y, g)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        assert torch.equal(out, want_out)
+        torch.testing.assert_close(stats, want_stats, rtol=1e-5,
+                                   atol=1e-5 * max(1.0, float(
+                                       want_stats.detach().abs().max())))
+    else:
+        torch.testing.assert_close(out.float(), want_out.float(), rtol=2e-2,
+                                   atol=2e-2)
+        torch.testing.assert_close(stats, want_stats, rtol=2e-2, atol=2e-1)
+    assert torch.equal(out2, out) and torch.equal(stats2, stats)
+    assert torch.equal(merged, want_merged)
+    assert torch.equal(dy, want_dy)
+    # dead slots get no gradient
+    live = torch.arange(V, device=cuda)[None] < bounds[:, -1:]
+    assert not dy[~live].any() and dy[live].any()
 
 
 def test_merge_kernel_refuses_what_it_does_not_take(cuda):
