@@ -45,6 +45,18 @@ Phases, each printed as one JSON line:
 8. ``train_reference``: at the small configuration, one step's loss and
    gradients on the card held to 10x the CPU float32 distance from a
    float64 CPU step, in both CML modes.
+9. ``kitti``: the dataset path through the port's tools at the full
+   default ``Config``, batch 4, in a temporary directory: a synthetic KITTI
+   tree of 12 frames (8 train, 4 val; PNG images), ``tools.cropdata`` in
+   its native and torch modes (the crops must match),
+   ``tools.create_gtdatabase``, ``tools.train`` for one epoch with the
+   GT-paste augmentation and the val AP (the training kernels' counts set
+   to 0 just before and read just after; each must have launched), the
+   same epoch without the augmentation, ``tools.evaluate`` (its AP must
+   equal the loop's on the same weights), and ``tools.detect`` (one
+   parseable KITTI result file per val frame).  Records the PNG decode ms,
+   host prep ms per frame with and without the augmentation, the step and
+   eval ms from the loop's phase timer, the AP and the database size.
 
 Then a ``kernels`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase exits nonzero before
@@ -103,6 +115,12 @@ BATCH = 4
 # FIXED_STEPS steps on one fixed batch; the dense-3D CML at DENSE_BATCH
 FIXED_STEPS = 15
 DENSE_BATCH = 2
+# the kitti phase: a tree of KITTI_TRAIN + KITTI_VAL synthetic frames, the
+# tools run with these config fields (and a checkpoint directory of their
+# own) on the card
+KITTI_TRAIN, KITTI_VAL = 8, 4
+KITTI_CFG = {"batch_size": BATCH}
+KITTI_DEVICE = "cuda"
 
 
 class SmokeFailure(RuntimeError):
@@ -846,7 +864,7 @@ def phase_reference(device):
                  voxel_shape=(32, 40, 10), image_size=(64, 96),
                  max_points=1024, max_voxels=256, samples_per_voxel=8,
                  assign_window=6, image_min_side=0)
-    gpu = Detector.create(cfg, seed=1, device=device)
+    gpu = Detector.create(cfg, checkpoint_epoch=0, seed=1, device=device)
     weights = {k: v.cpu() for k, v in gpu.model.state_dict().items()}
     cpu32 = Detector.create(cfg, state_dict=weights, device="cpu")
     ref = build_model(cfg, seed=None, device="cpu")
@@ -879,15 +897,15 @@ def make_train_frames(cfg, n: int, seed: int, **kw):
     ``seed``."""
     import numpy as np
 
+    from mvxnet_makise_tpu_torch.data.kitti import KittiFrame
     from mvxnet_makise_tpu_torch.data.synthetic import synthetic_frame
-    from mvxnet_makise_tpu_torch.train.loop import Frame
 
     rng = np.random.default_rng(seed)
     frames = []
     for i in range(n):
         pts, calib, image, boxes = synthetic_frame(rng, cfg, **kw)
-        frames.append(Frame(f"synth{i:06d}", pts, image, calib,
-                            {"Car": boxes}))
+        frames.append(KittiFrame(f"synth{i:06d}", pts, image, calib,
+                                 {"Car": boxes}))
     return frames
 
 
@@ -914,7 +932,8 @@ def fixed_batch(cfg, frames, device, seed: int = 0):
         preprocess_train_frame,
     )
 
-    arrays = [preprocess_train_frame(f, cfg, np.random.default_rng(i))
+    arrays = [preprocess_train_frame(f, cfg, None,
+                                     np.random.default_rng(i))
               for i, f in enumerate(frames)]
     gen = torch.Generator().manual_seed(seed)
     perm = torch.stack([torch.randperm(cfg.max_points, generator=gen)
@@ -1294,6 +1313,217 @@ def phase_train_reference(device):
     check(rec["ok"], f"card training step too far from float64: {out}")
 
 
+# ------------------------------------------------------------- kitti
+
+
+def write_paeth_png(path, bgr) -> None:
+    """``bgr`` as an RGB PNG whose rows all use the Paeth filter (the
+    slowest to decode: each pixel waits for its left neighbour), written
+    with numpy and zlib."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    x = bgr[..., ::-1].astype(np.int16)
+    h, w, _ = x.shape
+    a = np.pad(x, ((0, 0), (1, 0), (0, 0)))[:, :-1]       # left
+    b = np.pad(x, ((1, 0), (0, 0), (0, 0)))[:-1]          # up
+    c = np.pad(b, ((0, 0), (1, 0), (0, 0)))[:, :-1]       # up-left
+    pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    rows = np.concatenate([np.full((h, 1), 4, np.uint8),
+                           ((x - pred) & 255).astype(np.uint8).reshape(h, -1)],
+                          axis=1)
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.tobytes()))
+                + chunk(b"IEND", b""))
+
+
+def decode_ms(paths) -> float:
+    """Mean host ms of ``data.image_io.read_png`` over ``paths``."""
+    from mvxnet_makise_tpu_torch.data.image_io import read_png
+
+    t0 = time.perf_counter()
+    for p in paths:
+        check(read_png(p) is not None, f"{p} did not decode")
+    return (time.perf_counter() - t0) * 1e3 / len(paths)
+
+
+def phase_timer(log: str) -> dict:
+    """{phase: (seconds, ms per call)} from the loop's last epoch line."""
+    import re
+
+    line = [ln for ln in log.splitlines() if " done | " in ln][-1]
+    return {m[0]: (float(m[1]), float(m[2])) for m in
+            re.findall(r"(\w+): ([\d.]+)s \(([\d.]+) ms/it\)", line)}
+
+
+def run_tool(main, args) -> str:
+    """A tool's ``main(args)`` in this process (the kernels' launch counts
+    are this process's); returns its standard output."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(args)
+    check(rc == 0, f"{main.__module__} {args} returned {rc}")
+    return out.getvalue()
+
+
+def phase_kitti(kernels):
+    """The dataset path through the tools (module docstring, phase 9)."""
+    import glob
+    import pickle
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from mvxnet_makise_tpu_torch.config import Config
+    from mvxnet_makise_tpu_torch.data.image_io import read_png
+    from mvxnet_makise_tpu_torch.data.synthetic import write_kitti_tree
+    from mvxnet_makise_tpu_torch.eval import runner
+    from mvxnet_makise_tpu_torch.tools import (
+        create_gtdatabase,
+        cropdata,
+        detect,
+        evaluate,
+    )
+    from mvxnet_makise_tpu_torch.tools import train as train_cli
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_kitti-")
+    root = os.path.join(work, "kitti")
+    configs = {}
+    for name in ("augment", "plain"):
+        configs[name] = os.path.join(work, f"{name}.yaml")
+        with open(configs[name], "w") as f:
+            for k, v in dict(KITTI_CFG, checkpoint_dir=os.path.join(
+                    work, f"ckpt_{name}")).items():
+                f.write(f"{k}: {list(v) if isinstance(v, tuple) else v}\n")
+    cfg_path = configs["augment"]
+    cfg = Config(**KITTI_CFG)
+    dev = ["--device", KITTI_DEVICE]
+    t0 = time.perf_counter()
+    ids = write_kitti_tree(root, cfg, np.random.default_rng(0), KITTI_TRAIN,
+                           KITTI_VAL)
+    write_s = time.perf_counter() - t0
+
+    pngs = sorted(glob.glob(os.path.join(root, "training", "image_2",
+                                         "*.png")))
+    paeth = os.path.join(work, "paeth.png")
+    write_paeth_png(paeth, read_png(pngs[0]))
+    check(np.array_equal(read_png(paeth), read_png(pngs[0])),
+          "the Paeth-filtered PNG decodes to another image")
+    png_ms = {"unfiltered": decode_ms(pngs), "paeth": decode_ms([paeth] * 3)}
+
+    crops = {}
+    velo_dir = os.path.join(root, "training", "velodyne_croped")
+    for mode in ("native", "torch"):
+        run_tool(cropdata.main, [root, mode, "--config", cfg_path, *dev])
+        crops[mode] = [np.fromfile(os.path.join(velo_dir, f"{i}.bin"),
+                                   np.float32) for i in ids]
+    crops_match = all(np.array_equal(a, b) for a, b in
+                      zip(crops["native"], crops["torch"]))
+    points_kept = [len(c) // 4 for c in crops["torch"]]
+    check(crops_match, "cropdata's native and torch modes disagree")
+
+    run_tool(create_gtdatabase.main,
+             [root, "--classes", "Car", "--config", cfg_path, *dev])
+    with open(os.path.join(root, "training", "gtdatabase", "gtinfo.pkl"),
+              "rb") as f:
+        db_samples = len(pickle.load(f)["Car"])
+    check(db_samples > 0, "the GT database is empty")
+
+    # every AP the tools compute, in order: the loop's, then evaluate's
+    evals = []
+    run_eval = runner.run_eval
+
+    def recorded(*args, **kw):
+        evals.append(run_eval(*args, **kw))
+        return evals[-1]
+    runner.run_eval = recorded
+    try:
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        log = run_tool(train_cli.main, [root, "-n", "1", "--batch-size",
+                                        str(BATCH), "--eval-every", "1",
+                                        "--config", cfg_path, *dev])
+        train_s = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels}
+        run_tool(evaluate.main, [root, "-r", "1", "--config", cfg_path, *dev])
+    finally:
+        runner.run_eval = run_eval
+    plain_log = run_tool(train_cli.main, [root, "-n", "1", "--batch-size",
+                                          str(BATCH), "--no-augment",
+                                          "--config", configs["plain"], *dev])
+    ckpt_written = os.path.exists(os.path.join(work, "ckpt_augment",
+                                               "epoch1"))
+    val_lines = [ln for ln in log.splitlines() if " val Car: AP=" in ln]
+
+    out_dir = os.path.join(work, "results")
+    run_tool(detect.main, [root, "-o", out_dir, "-r", "1", "--batch",
+                           str(BATCH), "--config", cfg_path, *dev])
+    lines_ok, n_lines = True, 0
+    for fid in ids[KITTI_TRAIN:]:
+        path = os.path.join(out_dir, f"{fid}.txt")
+        if not os.path.exists(path):
+            lines_ok = False
+            continue
+        with open(path) as f:
+            for ln in f.read().splitlines():
+                parts = ln.split()
+                n_lines += 1
+                lines_ok &= (len(parts) == 16 and parts[0] == "Car"
+                             and bool(np.isfinite(np.asarray(
+                                 parts[1:], np.float64)).all()))
+
+    timer, plain_timer = phase_timer(log), phase_timer(plain_log)
+    needed = ("column_merge", "column_merge_bwd", "merge_taps_bwd",
+              "fpn_gather")
+    missing = [n for n in needed if launches[n] == 0]
+    same_ap = len(evals) == 2 and evals[0] == evals[1]
+    ok = (not missing and ckpt_written and len(val_lines) == 1 and same_ap
+          and lines_ok and crops_match)
+    rec = {"phase": "kitti", "ok": bool(ok),
+           "config": f"default Config {KITTI_CFG}, float32; a synthetic "
+                     f"KITTI tree of {KITTI_TRAIN} train + {KITTI_VAL} val "
+                     f"frames, {cfg.image_size[0]}x{cfg.image_size[1]} PNG "
+                     f"images",
+           "tree_write_s": write_s, "png_decode_ms": png_ms,
+           "crops_match": crops_match, "points_kept": points_kept,
+           "gt_database_samples": db_samples,
+           "train_seconds": train_s, "launches": launches,
+           "missing_kernels": missing, "checkpoint_written": ckpt_written,
+           "val_line": val_lines,
+           "host_prep_ms_per_frame": {
+               "augmented": timer["host_prep"][1],
+               "plain": plain_timer["host_prep"][1]},
+           "host_wait_ms_per_step": {
+               "augmented": timer["host_wait"][1],
+               "plain": plain_timer["host_wait"][1]},
+           "device_step_ms": {"augmented": timer["device_step"][1],
+                              "plain": plain_timer["device_step"][1]},
+           "eval_ms_per_frame": timer["eval"][0] * 1e3 / KITTI_VAL,
+           "loop_phases": timer,
+           "ap": evals[0] if evals else None,
+           "evaluate_equals_loop": same_ap,
+           "detect_files": len(os.listdir(out_dir)),
+           "detect_lines": n_lines, "detect_lines_parse": bool(lines_ok)}
+    emit(rec)
+    check(ok, "kitti phase failed: see its record")
+    shutil.rmtree(work)            # the tree and two epochs of checkpoints
+    return rec
+
+
 # ------------------------------------------------------------- main
 
 
@@ -1336,7 +1566,7 @@ def main() -> int:
           "did not build")
 
     cfg = Config()
-    det = Detector.create(cfg, seed=0, device=device)
+    det = Detector.create(cfg, checkpoint_epoch=0, seed=0, device=device)
     try:
         t0 = time.perf_counter()
         det.warm((BATCH,))
@@ -1365,6 +1595,7 @@ def main() -> int:
     trained = phase_train(device, kernels)
     dense = phase_train_dense3d(device, kernels)
     phase_train_reference(device)
+    kitti = phase_kitti(kernels)
 
     cm, pm = ("mvxnet_makise_tpu_torch/csrc/column_merge.cu",
               "mvxnet_makise_tpu/ops/pallas_column_merge.py")
@@ -1391,6 +1622,7 @@ def main() -> int:
             "launches": run["launches"][r["name"]] if run else 0,
             "path": path or "none: K3 runs on no model path; its phase "
                             "launches it",
+            "kitti_launches": kitti["launches"][r["name"]],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

@@ -109,7 +109,7 @@ def main(other_dirs) -> int:
     libs["this"] = cm.LIBRARY.library()
     dev = torch.device("cuda", 0)
     cfg = Config()
-    det = Detector.create(cfg, seed=0, device=dev)
+    det = Detector.create(cfg, checkpoint_epoch=0, seed=0, device=dev)
     frames = cs.make_frames(cfg, cs.FRAMES, seed=0)[:cs.BATCH]
     (y, col_cy, bounds, bias), _, _ = cs.kernel_inputs(det, frames)
     det.close()

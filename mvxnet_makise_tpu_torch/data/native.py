@@ -1,7 +1,8 @@
 """ctypes bindings for the host feed's C++ kernels (``csrc/pointcloud.cpp``).
 
-Port of the serving half of ``mvxnet_makise_tpu/data/native.py``
-(``assemble_frame``, ``assemble_batch`` and the numpy crop).  The package
+Port of ``mvxnet_makise_tpu/data/native.py`` without ``crop_range``
+(``crop_project``, ``assemble_frame``, ``assemble_batch`` and the numpy
+crop).  The package
 keeps its own copy of the C++ source; it is compiled with g++ on first
 use into the package's ``build/`` directory (listed in ``.gitignore``)
 and bound with ctypes.  Without g++, :func:`assemble_frame` falls back to
@@ -57,6 +58,8 @@ def _build() -> Optional[ctypes.CDLL]:
         os.replace(tmp, _LIB_PATH)
     dll = ctypes.CDLL(_LIB_PATH)
     i64, f32p = ctypes.c_int64, ctypes.POINTER(ctypes.c_float)
+    dll.crop_project.restype = i64
+    dll.crop_project.argtypes = [f32p, i64, f32p, f32p, f32p, f32p, f32p]
     dll.assemble_frame.restype = i64
     dll.assemble_frame.argtypes = [f32p, i64, f32p, f32p, f32p, f32p,
                                    ctypes.c_uint64, i64, f32p]
@@ -89,6 +92,21 @@ def _prep(points, calib: Calib, velo_range, image_size):
     rng6 = np.asarray(velo_range, dtype=np.float32)
     ims = np.asarray(image_size, dtype=np.float32)
     return pts, rect, proj, rng6, ims
+
+
+def crop_project(points: np.ndarray, calib: Calib, velo_range,
+                 image_size) -> np.ndarray:
+    """(N, 4) -> (K, 6) [x y z refl row col]: fused range+frustum crop
+    with image projection, in input order (no shuffle or padding).
+    Native when the library builds, numpy otherwise."""
+    lib = get_lib()
+    if lib is None:
+        return crop_project_numpy(points, calib, velo_range, image_size)
+    pts, rect, proj, rng6, ims = _prep(points, calib, velo_range, image_size)
+    out = np.empty((len(pts), 6), dtype=np.float32)
+    kept = lib.crop_project(_fp(pts), len(pts), _fp(rect), _fp(proj),
+                            _fp(rng6), _fp(ims), _fp(out))
+    return out[:kept].copy()
 
 
 def crop_project_numpy(points: np.ndarray, calib: Calib, velo_range,

@@ -1,13 +1,16 @@
-"""Box geometry on tensors: BEV corners, rotated BEV IoU, delta coding.
+"""Box geometry on tensors: corners, rotated BEV and 3D IoU, delta
+coding, camera <-> LiDAR label conversion.
 
-Port of the parts of ``mvxnet_makise_tpu/geometry/boxes.py`` that
-serving and training use.  Box convention: ``(x, y, z, l, w, h, r)`` in LiDAR
-coordinates, ``z`` = box bottom, ``r`` = yaw; corners follow the
-reference's row-vector rotation ``[[c, -s], [s, c]]``.
+Port of ``mvxnet_makise_tpu/geometry/boxes.py``.  Box convention:
+``(x, y, z, l, w, h, r)`` in LiDAR coordinates, ``z`` = box bottom, ``r`` =
+yaw; corners follow the reference's row-vector rotation
+``[[c, -s], [s, c]]``.  The label conversions and the 2D intersection take
+numpy arrays or tensors and return the same kind.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # Base BEV square in (l, w) units, counter-clockwise winding.
@@ -24,6 +27,28 @@ def boxes3d_to_bev_corners(boxes: torch.Tensor) -> torch.Tensor:
     rx = px * c[..., None] + py * s[..., None]
     ry = -px * s[..., None] + py * c[..., None]
     return torch.stack([rx + boxes[..., 0:1], ry + boxes[..., 1:2]], dim=-1)
+
+
+def boxes3d_to_corners3d(boxes: torch.Tensor) -> torch.Tensor:
+    """(..., 7) -> (..., 8, 3) 3D corners; top 4 (z + h) then bottom 4."""
+    bev = boxes3d_to_bev_corners(boxes)
+    z = boxes[..., 2:3].expand(bev.shape[:-1])[..., None]
+    h = boxes[..., 5:6].expand(bev.shape[:-1])[..., None]
+    return torch.cat([torch.cat([bev, z + h], dim=-1),
+                      torch.cat([bev, z], dim=-1)], dim=-2)
+
+
+def polygon_area(verts: torch.Tensor, count) -> torch.Tensor:
+    """Shoelace area of CCW polygons in fixed (..., V, 2) buffers with
+    ``count`` valid vertices (an int or a (...,) tensor); slots >= count
+    count as vertex 0 (duplicates contribute zero)."""
+    V = verts.shape[-2]
+    idx = torch.arange(V, device=verts.device)
+    valid = idx < torch.as_tensor(count, device=verts.device)[..., None]
+    verts = torch.where(valid[..., None], verts, verts[..., :1, :])
+    nxt = torch.roll(verts, -1, dims=-2)
+    cross = verts[..., 0] * nxt[..., 1] - nxt[..., 0] * verts[..., 1]
+    return 0.5 * cross.sum(-1)
 
 
 def _clipped_edges(qa: torch.Tensor, qb: torch.Tensor, lim: float):
@@ -94,6 +119,31 @@ def rotated_iou_bev(boxes1: torch.Tensor,
     return inter / torch.clamp(union, min=1e-12)
 
 
+def corners_iou_bev(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    """Pairwise IoU from corner quads directly: (N,4,2),(M,4,2)->(N,M)."""
+    a1, a2 = polygon_area(q1, 4), polygon_area(q2, 4)
+    inter = quad_intersection_area(q1[:, None], q2[None, :])
+    union = a1[:, None] + a2[None, :] - inter
+    return inter / torch.clamp(union, min=1e-12)
+
+
+def rotated_iou_3d(boxes1: torch.Tensor,
+                   boxes2: torch.Tensor) -> torch.Tensor:
+    """Pairwise 3D IoU: rotated BEV intersection x vertical overlap.
+    boxes1 (N, 7), boxes2 (M, 7) with z = box bottom -> (N, M)."""
+    q1 = boxes3d_to_bev_corners(boxes1)
+    q2 = boxes3d_to_bev_corners(boxes2)
+    inter_bev = quad_intersection_area(q1[:, None], q2[None, :])
+    zlo = torch.maximum(boxes1[:, None, 2], boxes2[None, :, 2])
+    zhi = torch.minimum(boxes1[:, None, 2] + boxes1[:, None, 5],
+                        boxes2[None, :, 2] + boxes2[None, :, 5])
+    inter = inter_bev * torch.clamp(zhi - zlo, min=0.0)
+    v1 = boxes1[:, 3] * boxes1[:, 4] * boxes1[:, 5]
+    v2 = boxes2[:, 3] * boxes2[:, 4] * boxes2[:, 5]
+    union = v1[:, None] + v2[None, :] - inter
+    return inter / torch.clamp(union, min=1e-12)
+
+
 def encode_boxes(gt: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
     """Delta-encode GT boxes against anchors (both (..., 7) xyzlwhr): xy
     normalized by the anchor BEV diagonal, z by anchor height, log size
@@ -116,3 +166,54 @@ def decode_boxes(deltas: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
     lwh = torch.exp(deltas[..., 3:6]) * anchors[..., 3:6]
     r = deltas[..., 6:7] + anchors[..., 6:7]
     return torch.cat([xy, z, lwh, r], dim=-1)
+
+
+def _transform_xyz(xyz: "np.ndarray | torch.Tensor", matrix):
+    """(N, 3) points through a 4x4 homogeneous ``matrix`` (numpy), in the
+    points' own kind and dtype."""
+    if isinstance(xyz, torch.Tensor):
+        m = torch.as_tensor(np.asarray(matrix), dtype=xyz.dtype,
+                            device=xyz.device)
+        xyz1 = torch.cat([xyz, torch.ones_like(xyz[:, :1])], dim=1)
+    else:
+        m = matrix
+        xyz1 = np.concatenate([xyz, np.ones_like(xyz[:, :1])], axis=1)
+    return (m @ xyz1.T).T[:, :3]
+
+
+def _cat(parts):
+    if isinstance(parts[0], torch.Tensor):
+        return torch.cat(parts, dim=1)
+    return np.concatenate(parts, axis=1)
+
+
+def boxes_cam_to_lidar(cam_boxes, cam_to_velo):
+    """KITTI label boxes (N, 7) 'h w l x y z ry' (camera frame) -> (N, 7)
+    'x y z l w h r' in the LiDAR frame: position through
+    inv(Tr_velo_to_cam) (the rectification is not undone, as in the
+    reference), dims h,w,l -> l,w,h, yaw r = ry - pi/2.  Numpy or
+    tensor in, the same kind out."""
+    xyz = _transform_xyz(cam_boxes[:, 3:6], cam_to_velo)
+    return _cat([xyz, cam_boxes[:, [2, 1, 0]],
+                 cam_boxes[:, 6:7] - 0.5 * np.pi])
+
+
+def boxes_lidar_to_cam(lidar_boxes, velo_to_cam):
+    """Inverse of :func:`boxes_cam_to_lidar`: (N,7) xyzlwhr -> hwlxyzr."""
+    xyz = _transform_xyz(lidar_boxes[:, 0:3], velo_to_cam)
+    return _cat([lidar_boxes[:, [5, 4, 3]], xyz,
+                 lidar_boxes[:, 6:7] + 0.5 * np.pi])
+
+
+def aligned_bbox_intersection(b1, b2):
+    """Pairwise intersection area of xyxy boxes: (N,4),(M,4)->(N,M);
+    numpy or tensors."""
+    if isinstance(b1, torch.Tensor):
+        lt = torch.maximum(b1[:, None, :2], b2[None, :, :2])
+        rb = torch.minimum(b1[:, None, 2:], b2[None, :, 2:])
+        wh = torch.clamp(rb - lt, min=0)
+    else:
+        lt = np.maximum(b1[:, None, :2], b2[None, :, :2])
+        rb = np.minimum(b1[:, None, 2:], b2[None, :, 2:])
+        wh = np.clip(rb - lt, 0, None)
+    return wh[..., 0] * wh[..., 1]

@@ -72,3 +72,16 @@ def lidar_to_image(points: np.ndarray, calib: Calib,
     depth = img[2]
     uv = img[:2] / np.where(np.abs(depth) < 1e-9, 1e-9, depth)
     return uv.T
+
+
+def lidar_depths(points: np.ndarray, calib: Calib) -> np.ndarray:
+    """Camera-frame depth of each LiDAR point (for frustum masks)."""
+    return lidar_to_cam_rect(points, calib)[:, 2]
+
+
+def rect_to_lidar(points: np.ndarray, calib: Calib) -> np.ndarray:
+    """Inverse chain: (N, 3) P2-frame points back to LiDAR."""
+    inv = np.linalg.inv
+    p = _homogeneous(points)
+    out = (inv(calib.velo_to_cam) @ inv(calib.R0) @ inv(calib.P2) @ p.T).T
+    return out[:, :3]

@@ -30,6 +30,37 @@ class VoxelGrid(NamedTuple):
     sorted_to_orig: torch.Tensor  # (B, P) int32 input row of each entry
 
 
+def crop_to_range_mask(points: torch.Tensor,
+                       velo_range: Sequence[float]) -> torch.Tensor:
+    """Axis-aligned range filter as a mask: ``low <= xyz < high``."""
+    lo = torch.tensor(velo_range[:3], dtype=points.dtype,
+                      device=points.device)
+    hi = torch.tensor(velo_range[3:6], dtype=points.dtype,
+                      device=points.device)
+    xyz = points[..., :3]
+    return ((xyz >= lo) & (xyz < hi)).all(dim=-1)
+
+
+def frustum_mask(points: torch.Tensor, proj: torch.Tensor,
+                 rect: torch.Tensor,
+                 image_size: Sequence[int]) -> torch.Tensor:
+    """Camera-FOV filter as a mask: positive depth and a projection inside
+    the image, with the ``imsize - 1e-3`` boundary epsilon.  proj: the
+    combined (4, 4) LiDAR->image matrix; rect: (4, 4) R0 @ Tr; image_size:
+    (h, w)."""
+    p = torch.cat([points[..., :3], torch.ones_like(points[..., :1])],
+                  dim=-1)
+    depth_ok = (p @ rect.T)[..., 2] > 0
+    img = p @ proj.T
+    z = img[..., 2]
+    uv = img[..., :2] / torch.where(z.abs() < 1e-9,
+                                    torch.full_like(z, 1e-9), z)[..., None]
+    h, w = image_size
+    lim = torch.tensor([w - 1e-3, h - 1e-3], dtype=points.dtype,
+                       device=points.device)
+    return depth_ok & ((uv >= 0) & (uv < lim)).all(dim=-1)
+
+
 def voxelize(points: torch.Tensor,
              num_valid: torch.Tensor,
              *,

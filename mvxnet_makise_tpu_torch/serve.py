@@ -11,7 +11,7 @@ pooled batch size; :meth:`Detector.warm` builds the CUDA kernels and runs
 one batch of each size ahead of the first request instead.
 
 Example:
-    det = Detector.create(cfg, seed=0)          # on the CUDA card
+    det = Detector.create(cfg, checkpoint_epoch=10)   # on the CUDA card
     results = det.detect_frames([(points, calib, image), ...])
 """
 
@@ -38,6 +38,7 @@ from mvxnet_makise_tpu_torch.eval.decode import (
 )
 from mvxnet_makise_tpu_torch.models.mvxnet import MVXNetPM, build_model
 from mvxnet_makise_tpu_torch.ops.assign import create_anchors
+from mvxnet_makise_tpu_torch.train import checkpoint as ckpt
 from mvxnet_makise_tpu_torch.train.step import frames_to_batch, model_inputs
 
 
@@ -81,16 +82,25 @@ class Detector:
 
     @classmethod
     def create(cls, cfg: Config,
+               checkpoint_epoch: Optional[int] = None,
                state_dict: Optional[Mapping[str, torch.Tensor]] = None,
                seed: int = 0, device: DeviceLike = None,
                **kw) -> "Detector":
-        """A detector with the weights of ``state_dict`` (an
-        ``MVXNetPM`` state dict), else random weights drawn from
-        ``seed``; on ``device`` (default: the CUDA card)."""
-        model = build_model(cfg, seed=None if state_dict is not None
-                            else seed, device=device)
+        """A detector on ``device`` (default: the CUDA card) with the
+        weights of ``state_dict`` (an ``MVXNetPM`` state dict) when given;
+        else those of epoch ``checkpoint_epoch``'s checkpoint in
+        ``cfg.checkpoint_dir`` (``train/checkpoint``), the latest epoch
+        there when ``checkpoint_epoch`` is None; else (0, or no
+        checkpoint) random weights drawn from ``seed``."""
+        if state_dict is None and checkpoint_epoch is None:
+            checkpoint_epoch = ckpt.latest_epoch(cfg.checkpoint_dir)
+        restore = state_dict is not None or bool(checkpoint_epoch)
+        model = build_model(cfg, seed=None if restore else seed,
+                            device=device)
         if state_dict is not None:
             model.load_state_dict(state_dict, strict=True)
+        elif checkpoint_epoch:
+            ckpt.restore_model(cfg.checkpoint_dir, checkpoint_epoch, model)
         return cls(cfg, model, **kw)
 
     def close(self) -> None:

@@ -1,18 +1,26 @@
 """Training CLI of the port:
 
-    python -m mvxnet_makise_tpu_torch.tools.train --synthetic N [-n EPOCHS]
-        [-r RESUME] [--config FILE] [--batch-size B] [--keep-last K]
+    python -m mvxnet_makise_tpu_torch.tools.train <dataroot> [-n EPOCHS]
+        [-r RESUME] [--config FILE] [--batch-size B] [--limit N]
+        [--no-augment] [--eval-every N] [--eval-limit N] [--keep-last K]
         [--max-seconds S] [--device cuda|cpu]
+    python -m mvxnet_makise_tpu_torch.tools.train --synthetic N [...]
 
-Port of ``mvxnet_makise_tpu/tools/train.py`` on synthetic frames
-(``data/synthetic.py``).  Training on a KITTI tree (``dataroot``) needs the
-host-data slice and is refused.  Runs on the CUDA card unless
-``--device cpu``.
+Port of ``mvxnet_makise_tpu/tools/train.py``.  From a KITTI tree it trains
+on the train split, with the GT-paste augmentation when
+``training/gtdatabase`` exists (``tools.create_gtdatabase``) unless
+``--no-augment``, and with ``--eval-every N`` prints the val split's AP
+every N epochs.  ``--synthetic N`` trains on N synthetic frames instead
+(held-out synthetic frames for ``--eval-every``).  Runs on the CUDA card
+unless ``--device cpu``.  The JAX CLI's ``--lidar-only``, ``--bf16`` and
+``--image-weights`` are not in the port yet (ROADMAP queue 1, item 9) and
+are refused.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 import numpy as np
@@ -26,8 +34,15 @@ def main(argv=None) -> int:
     p.add_argument("-r", "--resume", type=int, default=0)
     p.add_argument("--config", default=None)
     p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--no-augment", action="store_true",
+                   help="train without the GT-paste augmentation")
     p.add_argument("--synthetic", type=int, default=0, metavar="N",
                    help="train on N synthetic frames (no dataset needed)")
+    p.add_argument("--limit", type=int, default=None,
+                   help="cap the number of dataset frames loaded")
+    p.add_argument("--eval-every", type=int, default=0, metavar="N",
+                   help="print the val split's AP every N epochs (0: off)")
+    p.add_argument("--eval-limit", type=int, default=None)
     p.add_argument("--keep-last", type=int, default=None, metavar="N",
                    help="prune all but the newest N epoch checkpoints "
                         "after each save (default: keep all)")
@@ -36,35 +51,80 @@ def main(argv=None) -> int:
                         "this wall-clock budget is spent")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
+    # the JAX CLI's options that the port does not have yet: refused
+    not_yet = {"lidar_only": "the LiDAR-only branch",
+               "bf16": "bfloat16 compute",
+               "image_weights": "torchvision's extractor weights"}
+    p.add_argument("--lidar-only", action="store_true", help="not yet")
+    p.add_argument("--bf16", action="store_true", help="not yet")
+    p.add_argument("--image-weights", default=None, help="not yet")
     args = p.parse_args(argv)
-
-    if args.dataroot:
-        p.error("training on a dataset root needs the host-data slice "
-                "(ROADMAP item 9); use --synthetic N")
-    if args.synthetic <= 0:
-        p.error("give --synthetic N (N > 0)")
+    for name, what in not_yet.items():
+        if getattr(args, name):
+            p.error(f"--{name.replace('_', '-')} ({what}) is not in the "
+                    f"port yet (ROADMAP queue 1, item 9)")
 
     from mvxnet_makise_tpu_torch.config import load_config
-    from mvxnet_makise_tpu_torch.data.synthetic import synthetic_frame
-    from mvxnet_makise_tpu_torch.train.loop import Frame, train
+    from mvxnet_makise_tpu_torch.data.kitti import KittiFrame
+    from mvxnet_makise_tpu_torch.train.loop import train
 
     overrides = {"num_epochs": args.numepochs}
+    if args.dataroot:
+        overrides["data_root"] = args.dataroot
     if args.batch_size:
         overrides["batch_size"] = args.batch_size
     if args.keep_last is not None:
         overrides["checkpoint_keep_last"] = args.keep_last
     cfg = load_config(args.config, **overrides)
-    if cfg.target_classes != ("Car",):
-        p.error("synthetic frames hold cars only: target_classes must be "
-                "('Car',)")
 
-    rng = np.random.default_rng(cfg.seed)
-    frames = []
-    for i in range(args.synthetic):
-        pts, calib, image, boxes = synthetic_frame(rng, cfg)
-        frames.append(Frame(frame_id=f"synth{i:06d}", points=pts,
-                            image=image, calib=calib, boxes={"Car": boxes}))
-    train(cfg, frames, resume_epoch=args.resume,
+    gt_db, eval_frames = None, None
+    if args.synthetic > 0:
+        from mvxnet_makise_tpu_torch.data.synthetic import (
+            synthetic_frame,
+            synthetic_frame_multiclass,
+        )
+
+        rng = np.random.default_rng(cfg.seed)
+
+        def make(i):
+            if len(cfg.target_classes) > 1:
+                pts, calib, image, by_cls = synthetic_frame_multiclass(
+                    rng, cfg)
+            else:
+                pts, calib, image, boxes = synthetic_frame(rng, cfg)
+                by_cls = {cfg.target_classes[0]: boxes}
+            return KittiFrame(frame_id=f"synth{i:06d}", points=pts,
+                              image=image, calib=calib, boxes=by_cls)
+
+        frames = [make(i) for i in range(args.synthetic)]
+        if args.eval_every:
+            # held-out synthetic frames: the same generator, fresh draws
+            n_eval = args.eval_limit or max(args.synthetic // 4, 2)
+            eval_frames = [make(args.synthetic + i) for i in range(n_eval)]
+    else:
+        if not args.dataroot or not os.path.isdir(args.dataroot):
+            p.error("dataroot missing (or use --synthetic N)")
+        from mvxnet_makise_tpu_torch.data.kitti import load_dataset
+
+        frames = load_dataset(cfg.data_root, "train", cfg, limit=args.limit)
+        if args.eval_every:
+            eval_frames = load_dataset(cfg.data_root, "val", cfg,
+                                       limit=args.eval_limit)
+        if not args.no_augment:
+            from mvxnet_makise_tpu_torch.data.gt_database import (
+                load_database,
+            )
+
+            if os.path.isdir(os.path.join(cfg.data_root, "training",
+                                          "gtdatabase")):
+                gt_db = load_database(cfg.data_root, cfg.target_classes)
+            else:
+                print("no gtdatabase found: training without the paste "
+                      "augmentation (build one with "
+                      "tools.create_gtdatabase)")
+
+    train(cfg, frames, gt_db=gt_db, resume_epoch=args.resume,
+          eval_frames=eval_frames, eval_every=max(args.eval_every, 1),
           time_budget_s=args.max_seconds, device=args.device)
     return 0
 

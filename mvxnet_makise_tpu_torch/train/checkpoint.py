@@ -43,18 +43,32 @@ def save_checkpoint(checkpoint_dir: str, epoch: int,
     return path
 
 
+def _load(checkpoint_dir: str, epoch: int) -> dict:
+    # tensors load to the CPU first: load_state_dict moves them onto the
+    # parameters' device
+    return torch.load(_path(checkpoint_dir, epoch), map_location="cpu",
+                      weights_only=True)
+
+
 def restore_checkpoint(checkpoint_dir: str, epoch: int,
                        state: TrainState) -> TrainState:
     """Load epoch ``epoch``'s checkpoint into ``state`` (in place) and
-    return it.  Tensors load to the CPU first: ``load_state_dict`` moves
-    the model's and AdamW's moments onto the parameters' device and keeps
-    AdamW's step counters on the CPU, where a fresh run keeps them."""
-    saved = torch.load(_path(checkpoint_dir, epoch), map_location="cpu",
-                       weights_only=True)
+    return it.  ``load_state_dict`` moves the model's and AdamW's moments
+    onto the parameters' device and keeps AdamW's step counters on the
+    CPU, where a fresh run keeps them."""
+    saved = _load(checkpoint_dir, epoch)
     state.model.load_state_dict(saved["model"], strict=True)
     state.optimizer.load_state_dict(saved["optimizer"])
     state.step = int(saved["step"])
     return state
+
+
+def restore_model(checkpoint_dir: str, epoch: int,
+                  model: torch.nn.Module) -> torch.nn.Module:
+    """Load epoch ``epoch``'s model weights into ``model`` (in place; no
+    optimizer) and return it."""
+    model.load_state_dict(_load(checkpoint_dir, epoch)["model"], strict=True)
+    return model
 
 
 def _epochs(checkpoint_dir: str) -> List[int]:

@@ -1,30 +1,51 @@
-"""The training loop: host prep -> device step -> per-epoch checkpoints.
+"""The training loop: host prep -> device step -> per-epoch checkpoints
+and validation.
 
-Port of ``mvxnet_makise_tpu/train/loop.py`` without augmentation and
-eval (the GT-paste augmenter and the evaluator come with the host-data
-slice): epoch shuffle, running average/max of the losses every
-``log_every`` iterations, a checkpoint per epoch with ``keep_last``
-pruning, resume from an epoch, and a wall-clock budget.  Each batch's
-voxelizer shuffle is a permutation drawn from the loop's own
+Port of ``mvxnet_makise_tpu/train/loop.py``: epoch shuffle, GT-paste
+augmentation (``data/augment``) when a GT database is given, running
+average/max of the losses every ``log_every`` iterations, a checkpoint per
+epoch with ``keep_last`` pruning, AP on held-out frames every
+``eval_every`` epochs (``eval/runner``), resume from an epoch, and a
+wall-clock budget.  Host prep runs in a thread pool of ``workers``, a
+bounded number of frames ahead of the device, each frame with its own
+``np.random.Generator`` (seeded with the seed, the epoch and its place in
+the epoch), so the feed is the same for any number of workers.  Each
+batch's voxelizer shuffle is a permutation drawn from the loop's own
 ``torch.Generator`` (seeded with ``cfg.seed``).
 """
 
 from __future__ import annotations
 
+import collections
+import concurrent.futures as cf
 import random
 import time
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import (
+    Iterable,
+    Iterator,
+    List,
+    NamedTuple,
+    Optional,
+    Sequence,
+    Tuple,
+)
 
 import numpy as np
 import torch
 
 from mvxnet_makise_tpu_torch.config import Config
+from mvxnet_makise_tpu_torch.data.augment import (
+    SceneAugmenter,
+    assemble_augmented_cloud,
+)
+from mvxnet_makise_tpu_torch.data.kitti import KittiFrame
 from mvxnet_makise_tpu_torch.device import (
     DeviceLike,
     resolve_device,
     use_full_f32,
 )
-from mvxnet_makise_tpu_torch.geometry.calib import Calib, lidar_to_image
+from mvxnet_makise_tpu_torch.eval import runner
+from mvxnet_makise_tpu_torch.geometry.calib import lidar_to_image
 from mvxnet_makise_tpu_torch.models.mvxnet import MVXNetPM, build_model
 from mvxnet_makise_tpu_torch.ops.assign import create_anchors
 from mvxnet_makise_tpu_torch.train import checkpoint as ckpt
@@ -34,15 +55,6 @@ from mvxnet_makise_tpu_torch.train.step import (
     make_train_step,
 )
 from mvxnet_makise_tpu_torch.utils.metrics import LossTracker, PhaseTimer
-
-
-class Frame(NamedTuple):
-    """One training frame on the host."""
-    frame_id: str
-    points: np.ndarray               # (N, 4) x y z reflectance, LiDAR frame
-    image: Optional[np.ndarray]      # (H, W, 3) float in [0, 1], or None
-    calib: Calib
-    boxes: Dict[str, np.ndarray]     # class name -> (G, 7) xyzlwhr
 
 
 class TrainArrays(NamedTuple):
@@ -55,14 +67,24 @@ class TrainArrays(NamedTuple):
     gt_classes: np.ndarray  # (max_boxes,) int32
 
 
-def preprocess_train_frame(frame: Frame, cfg: Config,
+def preprocess_train_frame(frame: KittiFrame, cfg: Config,
+                           augmenter: Optional[SceneAugmenter],
                            rng: np.random.Generator) -> TrainArrays:
-    """Project every point to the image, shuffle with ``rng``, pad to
-    ``max_points``; gather the target classes' boxes, padded to
+    """Paste objects with ``augmenter`` (None: none), project every point
+    to the image (a pasted cloud with its own calib), shuffle with ``rng``
+    and pad to ``max_points``; gather the target classes' boxes, padded to
     ``max_boxes``.  Voxelization and assignment happen on the device."""
-    uv = lidar_to_image(frame.points, frame.calib, keep_all=True)
-    cloud = np.concatenate([frame.points[:, :4], uv[:, 1:2], uv[:, 0:1]],
-                           axis=1).astype(np.float32)
+    if augmenter is not None:
+        pasted, image, boxes, _ = augmenter(
+            frame.points, frame.image, frame.bbox2d, frame.boxes,
+            list(cfg.target_classes), list(cfg.augment_fill_to))
+        cloud = assemble_augmented_cloud(frame.points, frame.calib, pasted)
+    else:
+        image, boxes = frame.image, frame.boxes
+        uv = lidar_to_image(frame.points, frame.calib, keep_all=True)
+        cloud = np.concatenate(
+            [frame.points[:, :4], uv[:, 1:2], uv[:, 0:1]],
+            axis=1).astype(np.float32)
     rng.shuffle(cloud, axis=0)
     n = min(len(cloud), cfg.max_points)
     pts = np.zeros((cfg.max_points, 6), dtype=np.float32)
@@ -70,9 +92,9 @@ def preprocess_train_frame(frame: Frame, cfg: Config,
 
     all_boxes, all_cls = [], []
     for ci, c in enumerate(cfg.target_classes):
-        if c in frame.boxes and len(frame.boxes[c]):
-            all_boxes.append(frame.boxes[c])
-            all_cls.append(np.full(len(frame.boxes[c]), ci, np.int32))
+        if c in boxes and len(boxes[c]):
+            all_boxes.append(boxes[c])
+            all_cls.append(np.full(len(boxes[c]), ci, np.int32))
     gt = np.zeros((cfg.max_boxes, 7), np.float32)
     gcls = np.zeros((cfg.max_boxes,), np.int32)
     gmask = np.zeros((cfg.max_boxes,), bool)
@@ -82,7 +104,7 @@ def preprocess_train_frame(frame: Frame, cfg: Config,
         gcls[:len(cat)] = np.concatenate(all_cls, axis=0)[:cfg.max_boxes]
         gmask[:len(cat)] = True
 
-    img = frame.image if frame.image is not None else np.zeros(
+    img = image if image is not None else np.zeros(
         (*cfg.image_size, 3), np.float32)
     return TrainArrays(points=pts, num_points=n,
                        image=np.asarray(img, np.float32), gt_boxes=gt,
@@ -137,24 +159,55 @@ def _flush_metrics(tracker: LossTracker, pending: List[dict]) -> None:
     pending.clear()
 
 
+def _prefetch(pool: cf.Executor, fn, items: Iterable,
+              depth: int) -> Iterator:
+    """``fn(item)`` for each item, run on ``pool`` and yielded in order,
+    with at most ``depth`` calls queued or running at a time: a feed that
+    outruns the device holds ``depth`` frames, not the epoch's (``pool.map``
+    queues every call at once, and a KITTI epoch is ~20 GB of frames)."""
+    items = iter(items)
+    queue = collections.deque(pool.submit(fn, x)
+                              for _, x in zip(range(depth), items))
+    while queue:
+        head = queue.popleft()
+        for x in items:
+            queue.append(pool.submit(fn, x))
+            break
+        yield head.result()
+
+
 def train(cfg: Config,
-          frames: Sequence[Frame],
+          frames: Sequence[KittiFrame],
           *,
+          gt_db=None,
           resume_epoch: int = 0,
           num_epochs: Optional[int] = None,
           log_every: int = 50,
+          workers: Optional[int] = None,
+          eval_frames: Optional[Sequence[KittiFrame]] = None,
+          eval_every: int = 1,
           time_budget_s: Optional[float] = None,
           device: DeviceLike = None,
           seed: int = 0) -> TrainState:
     """Train on in-RAM frames for ``num_epochs`` (default
     ``cfg.num_epochs``) after ``resume_epoch``; returns the final state.
 
-    Random weights come from ``seed``; with ``resume_epoch`` > 0 the
-    model, optimizer and step count are restored from that epoch's
-    checkpoint in ``cfg.checkpoint_dir``.  ``time_budget_s``: stop after
-    the last fully checkpointed epoch once the wall-clock budget is spent.
-    On the card, float32 runs in full float32 (TF32 off, process-wide,
-    ``device.use_full_f32``)."""
+    ``gt_db`` (``data/gt_database.load_database``) turns on the paste
+    augmentation.  Host prep runs on ``workers`` threads (default
+    ``cfg.num_workers``).  After each epoch's checkpoint, every
+    ``eval_every`` epochs, the AP on ``eval_frames`` is printed as
+    ``epoch N val CLASS: AP=... R=... gt=...``.  Random weights come from
+    ``seed``; with ``resume_epoch`` > 0 the model, optimizer and step count
+    are restored from that epoch's checkpoint in ``cfg.checkpoint_dir``.
+    ``time_budget_s``: stop after the last fully checkpointed epoch once
+    the wall-clock budget is spent.  On the card, float32 runs in full
+    float32 (TF32 off, process-wide, ``device.use_full_f32``).
+
+    Each epoch ends with one line of the loop's phase times
+    (:class:`utils.metrics.PhaseTimer`): ``host_prep`` per frame (summed
+    over the workers), ``host_wait`` (the device loop waiting for the
+    feed), ``host_collate``, ``device_step``, ``device_wait``,
+    ``checkpoint`` and ``eval``."""
     t_start = time.monotonic()
     num_epochs = num_epochs or cfg.num_epochs
     dev = resolve_device(device)
@@ -171,35 +224,49 @@ def train(cfg: Config,
     shuffle = torch.Generator().manual_seed(cfg.seed)
     frames = list(frames)
     B = cfg.batch_size
+    workers = max(cfg.num_workers if workers is None else workers, 1)
 
     for epoch in range(resume_epoch, resume_epoch + num_epochs):
         random.Random(cfg.seed + epoch).shuffle(frames)
         tracker = LossTracker()
         pending: List[dict] = []
         it = 0
-        for start in range(0, len(frames) - B + 1, B):
+
+        def prep(args, epoch=epoch):
+            # a private generator per frame: Generators are not
+            # thread-safe, and per-frame seeding keeps the feed the same
+            # under any thread interleaving
+            idx, fr = args
             with timer.phase("host_prep"):
-                # a private generator per frame keeps the feed
-                # deterministic whatever the batching
-                arrays = [preprocess_train_frame(
-                    fr, cfg, np.random.default_rng(
-                        np.random.SeedSequence([cfg.seed, epoch, idx])))
-                    for idx, fr in enumerate(frames[start:start + B],
-                                             start=start)]
-                tensors = collate(arrays, dev)
-                perm = torch.stack([torch.randperm(cfg.max_points,
-                                                   generator=shuffle)
-                                    for _ in range(B)]).to(dev)
-            with timer.phase("device_step"):
-                pending.append(step(state, *tensors, perm))
-            it += 1
-            if it % log_every == 0:
-                _flush_metrics(tracker, pending)
-                print(f"epoch {epoch + 1} it {it}: "
-                      f"avg cls {tracker.average('cls_loss'):.6f} "
-                      f"avg reg {tracker.average('reg_loss'):.6f} "
-                      f"max cls {tracker.maximum('cls_loss'):.6f} "
-                      f"max reg {tracker.maximum('reg_loss'):.6f}")
+                frame_rng = np.random.default_rng(
+                    np.random.SeedSequence([cfg.seed, epoch, idx]))
+                augmenter = (SceneAugmenter(cfg, gt_db, rng=frame_rng)
+                             if gt_db else None)
+                return preprocess_train_frame(fr, cfg, augmenter,
+                                              frame_rng)
+
+        steps = len(frames) // B
+        with cf.ThreadPoolExecutor(max_workers=workers) as pool:
+            feed = _prefetch(pool, prep, enumerate(frames[:steps * B]),
+                             2 * max(B, workers))
+            for _ in range(steps):
+                with timer.phase("host_wait"):
+                    arrays = [next(feed) for _ in range(B)]
+                with timer.phase("host_collate"):
+                    tensors = collate(arrays, dev)
+                    perm = torch.stack([torch.randperm(cfg.max_points,
+                                                       generator=shuffle)
+                                        for _ in range(B)]).to(dev)
+                with timer.phase("device_step"):
+                    pending.append(step(state, *tensors, perm))
+                it += 1
+                if it % log_every == 0:
+                    _flush_metrics(tracker, pending)
+                    print(f"epoch {epoch + 1} it {it}: "
+                          f"avg cls {tracker.average('cls_loss'):.6f} "
+                          f"avg reg {tracker.average('reg_loss'):.6f} "
+                          f"max cls {tracker.maximum('cls_loss'):.6f} "
+                          f"max reg {tracker.maximum('reg_loss'):.6f}")
         _flush_metrics(tracker, pending)
 
         with timer.phase("device_wait"):
@@ -210,6 +277,15 @@ def train(cfg: Config,
             if cfg.checkpoint_keep_last:
                 ckpt.prune_checkpoints(cfg.checkpoint_dir,
                                        cfg.checkpoint_keep_last)
+        if eval_frames and (epoch + 1 - resume_epoch) % eval_every == 0:
+            with timer.phase("eval"):
+                res = runner.run_eval(cfg, list(eval_frames), state.model,
+                                      batch_size=min(B, 4))
+            for cname, buckets in res.items():
+                r = buckets["all"]
+                print(f"epoch {epoch + 1} val {cname}: "
+                      f"AP={r['ap']:.4f} R={r['recall']:.4f} "
+                      f"gt={r['num_gt']}")
         print(f"epoch {epoch + 1} done | step {state.step} | "
               f"avg total {tracker.average('total_loss'):.6f} | "
               f"{timer.report()}")

@@ -9,6 +9,7 @@ totals per named phase of the loop.
 from __future__ import annotations
 
 import math
+import threading
 import time
 from collections import defaultdict
 from typing import Dict
@@ -61,12 +62,14 @@ class PhaseTimer:
 
     Usage: ``with timer.phase("device_step"): ...``.  Callers put a
     ``torch.cuda.synchronize()`` at phase edges where device work must be
-    attributed to the phase that queued it.
+    attributed to the phase that queued it.  Threads may time phases
+    concurrently (the totals are updated under a lock).
     """
 
     def __init__(self):
         self.totals: Dict[str, float] = defaultdict(float)
         self.counts: Dict[str, int] = defaultdict(int)
+        self._lock = threading.Lock()
 
     class _Ctx:
         def __init__(self, timer, name):
@@ -78,8 +81,9 @@ class PhaseTimer:
 
         def __exit__(self, *exc):
             dt = time.perf_counter() - self.t0
-            self.timer.totals[self.name] += dt
-            self.timer.counts[self.name] += 1
+            with self.timer._lock:
+                self.timer.totals[self.name] += dt
+                self.timer.counts[self.name] += 1
             return False
 
     def phase(self, name: str) -> "_Ctx":
@@ -92,6 +96,6 @@ class PhaseTimer:
         parts = []
         for k in sorted(self.totals):
             c = max(self.counts[k], 1)
-            parts.append(f"{k}: {self.totals[k]:.2f}s "
-                         f"({self.totals[k] / c * 1e3:.1f} ms/it)")
+            parts.append(f"{k}: {self.totals[k]:.3f}s "
+                         f"({self.totals[k] / c * 1e3:.3f} ms/it)")
         return " | ".join(parts)

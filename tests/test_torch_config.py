@@ -86,18 +86,24 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     assert resolve_device("cpu").type == "cpu"
 
 
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "cv2", "PIL",
+             "mvxnet_makise_tpu")
+
+
 def test_import_leaves_jax_and_the_jax_package_out():
-    code = textwrap.dedent("""
-        import sys
-        import mvxnet_makise_tpu_torch
-        import mvxnet_makise_tpu_torch.serve
-        import mvxnet_makise_tpu_torch.models.weights
-        import mvxnet_makise_tpu_torch.data.synthetic
+    """Every module of the port, and ``chip_smoke.py``: importing them
+    loads none of the forbidden packages, and no import statement in them
+    (at any depth, so also the ones a function runs late) names one."""
+    import ast
+
+    code = textwrap.dedent(f"""
+        import importlib, pkgutil, sys
+        import mvxnet_makise_tpu_torch as pkg
+        for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+            importlib.import_module(m.name)
         import chip_smoke
         bad = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "jaxlib", "flax",
-                                            "optax", "orbax",
-                                            "mvxnet_makise_tpu"))
+                     if m.split(".")[0] in {FORBIDDEN!r})
         print(bad)
         sys.exit(1 if bad else 0)
     """)
@@ -105,3 +111,20 @@ def test_import_leaves_jax_and_the_jax_package_out():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=root)
     assert out.returncode == 0, out.stdout + out.stderr
+
+    sources = [os.path.join(root, "chip_smoke.py")]
+    for d, _, files in os.walk(os.path.join(root, "mvxnet_makise_tpu_torch")):
+        sources += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    assert len(sources) > 40
+    for path in sources:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in FORBIDDEN, (path, name)

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from mvxnet_makise_tpu_torch.config import Config
+from mvxnet_makise_tpu_torch.data.kitti import KittiFrame
 from mvxnet_makise_tpu_torch.data.synthetic import synthetic_frame
 from mvxnet_makise_tpu_torch.models.mvxnet import build_model
 from mvxnet_makise_tpu_torch.ops import column_merge, gather, scatter_grid
@@ -30,7 +31,6 @@ from mvxnet_makise_tpu_torch.ops.scatter import scatter_voxels_to_grid
 from mvxnet_makise_tpu_torch.serve import Detector
 from mvxnet_makise_tpu_torch.train import checkpoint as ckpt
 from mvxnet_makise_tpu_torch.train.loop import (
-    Frame,
     collate,
     preprocess_train_frame,
 )
@@ -366,7 +366,7 @@ def test_detector_on_card_matches_cpu(cuda):
     """The card's float32 maps sit at most 10x as far from a float64 CPU
     run of the same weights as the CPU's float32 maps do (an untrained
     model amplifies float32 rounding to ~1e-3 on any device)."""
-    gpu = Detector.create(TINY, seed=3, device=cuda)
+    gpu = Detector.create(TINY, checkpoint_epoch=0, seed=3, device=cuda)
     weights = {k: v.cpu() for k, v in gpu.model.state_dict().items()}
     cpu = Detector.create(TINY, state_dict=weights, device="cpu")
     ref = build_model(TINY, seed=None, device="cpu")
@@ -406,8 +406,8 @@ def _train_batch(cfg, device, dtype=torch.float32):
         pts, calib, image, boxes = synthetic_frame(
             rng, cfg, num_cars=3, num_points=1200, yaw_range=(0.0, 0.0))
         arrays.append(preprocess_train_frame(
-            Frame(f"f{i}", pts, image, calib, {"Car": boxes}), cfg,
-            np.random.default_rng(i)))
+            KittiFrame(f"f{i}", pts, image, calib, {"Car": boxes}), cfg,
+            None, np.random.default_rng(i)))
     pts, nums, imgs, gts, gms, gcs = collate(arrays, device)
     gen = torch.Generator().manual_seed(0)
     perm = torch.stack([torch.randperm(cfg.max_points, generator=gen)

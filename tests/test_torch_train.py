@@ -47,6 +47,7 @@ from mvxnet_makise_tpu.train.step import _assign_batch as jax_assign_batch
 from mvxnet_makise_tpu.train.step import _model_inputs
 from mvxnet_makise_tpu.train.step import frames_to_batch as jax_batch
 from mvxnet_makise_tpu_torch.config import Config
+from mvxnet_makise_tpu_torch.data.kitti import KittiFrame as Frame
 from mvxnet_makise_tpu_torch.data.synthetic import synthetic_frame
 from mvxnet_makise_tpu_torch.models.mvxnet import build_model
 from mvxnet_makise_tpu_torch.models.weights import (
@@ -57,7 +58,6 @@ from mvxnet_makise_tpu_torch.ops.assign import create_anchors
 from mvxnet_makise_tpu_torch.tools import train as train_cli
 from mvxnet_makise_tpu_torch.train import checkpoint as ckpt
 from mvxnet_makise_tpu_torch.train.loop import (
-    Frame,
     collate,
     preprocess_train_frame,
 )
@@ -115,7 +115,7 @@ def _frames(cfg, seed=0, **kw):
 
 
 def _arrays(cfg, frames):
-    return [preprocess_train_frame(f, cfg, np.random.default_rng(i))
+    return [preprocess_train_frame(f, cfg, None, np.random.default_rng(i))
             for i, f in enumerate(frames)]
 
 
@@ -246,7 +246,7 @@ def test_train_step_update_matches_jax(step_run):
 
 def test_preprocess_matches_jax():
     frame = _frames(CFG, seed=3)[0]
-    got = preprocess_train_frame(frame, CFG, np.random.default_rng(9))
+    got = preprocess_train_frame(frame, CFG, None, np.random.default_rng(9))
     c = frame.calib
     jframe = KittiFrame(frame_id="f", points=frame.points,
                         image=frame.image,
@@ -406,4 +406,4 @@ def test_train_cli_on_the_cpu(tmp_path, monkeypatch, capsys):
     assert sorted(os.listdir("checkpoints")) == ["epoch3", "epoch4"]
     with pytest.raises(SystemExit):
         train_cli.main(["kitti_dataset"])
-    assert "host-data slice" in capsys.readouterr().err
+    assert "dataroot missing" in capsys.readouterr().err
