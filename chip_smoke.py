@@ -10,11 +10,11 @@ Phases, each printed as one JSON line:
 1. ``build``: compiles every CUDA kernel of the port from
    ``mvxnet_makise_tpu_torch/csrc`` (one ``nvcc`` per source, all started
    together) and reports seconds, the command and ``ptxas`` register use.
-2. ``kernel``: one phase per kernel, forward and backward.  Inputs come
-   from the forward of synthetic frames at the full default ``Config``
-   (and, for K4, the dense-3D CML's voxel rows); each kernel's wrapper is
-   held against its plain PyTorch version (for a backward: autograd
-   through the plain version) on the same inputs, with the tolerance
+2. ``kernel``: one phase per kernel, forward and backward.  Inputs are
+   caught inside the Detector's forward of synthetic frames at the full
+   default ``Config`` (and, for K4, the CML's voxel rows); each kernel's
+   wrapper is held against its plain PyTorch version (for a backward:
+   autograd through the plain version) on the same inputs, with the tolerance
    stated, and timed beside the plain version, a one-call PyTorch
    yardstick and the card's bound for the same work (CUDA events around
    back-to-back calls that a spin kernel let the host queue ahead).  Each
@@ -58,7 +58,34 @@ Phases, each printed as one JSON line:
    host prep ms per frame with and without the augmentation, the step and
    eval ms from the loop's phase timer, the AP and the database size.
 
-Then a ``kernels`` line, the card's name and power limit, and last
+10. ``reference_bf16`` (after ``reference``): the small configuration
+    under ``use_bf16``, the card's bfloat16 maps held to 2x the CPU's own
+    bfloat16 distance from a float64 run (floor 1e-2); the LiDAR-only
+    model's maps float32.
+11. ``full_fusion``: ``configs/full_fusion.yaml`` as written (bfloat16,
+    remat, batch 4, 32768 points) on the ``kitti`` tree: ``tools.train``
+    for one epoch with the paste augmentation and the val AP (kernel
+    counts set to 0 just before; K1 launches twice per step under remat),
+    ``tools.evaluate`` (the loop's AP) and ``tools.detect``; then
+    FIXED_STEPS steps on one fixed batch (the loss falls, every float32
+    master gets a finite nonzero gradient, the extractor stays
+    bit-unchanged), the step split and profile, one step without remat
+    (its peak memory above remat's), and ``detect_stream`` from the
+    checkpoint (bfloat16 maps).
+12. ``lidar_only``: ``configs/lidar_only.yaml`` with ``--lidar-only``
+    through the three tools and ``detect_stream``: float32 maps, K1 and
+    its backward on the path, K2 not.
+13. ``shipped_configs``: ``configs/serving_economy.yaml`` serves 16
+    frames through ``detect_stream`` at its batch 8;
+    ``configs/multiclass.yaml`` takes two train steps.
+
+The kernel phases run each kernel in float32 and, for K1, K1's backward,
+K3, K3's backward and K2, again in bfloat16 (``*_bf16`` records) on the
+arguments ``configs/full_fusion.yaml``'s Detector hands them (batch 4,
+32768 points), caught inside its forward on the bfloat16 copies it
+computes with; K2 in bfloat16 is also held to the float32 sum of its own
+formula, one bfloat16 step per value.  Then a ``kernels`` line, the card's name
+and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase exits nonzero before
 that line.  Without a CUDA device the script exits nonzero and prints no
 result.  JAX is never imported.
@@ -91,13 +118,36 @@ F32_FLOP_PER_S = 67e12
 #   563k cells of a batch in another order (dbias).
 #   K3 is K1's kernel without the epilogue: the same adds in the same
 #   order.  K3's backward, K4 and K4's backward copy values: exact.
+#   In bfloat16: K1 adds the bias to its float32 tap sum, the plain version
+#   to that sum rounded to bfloat16 (JAX's reference does the same), so an
+#   output may move by one bfloat16 step (2^-8 relative; none with a zero
+#   bias, as at initialization), and the row statistics, summed from the
+#   kernel's unrounded tap sums and the plain version's rounded ones, by
+#   at most that step too (measured 1.4e-3 on an H100).  K1's backward is held to
+#   _merge_fused_bwd's formula on the kernel's own output (a cell near 0
+#   may flip the ReLU between kernel and plain version): dy may round one
+#   bfloat16 step apart (measured 0), dbias is a float32 sum in another
+#   order (measured 1.4e-7; 1e-5 as a float32 sum of this size).  K3 sums
+#   the same taps in the same order as the plain version and rounds once:
+#   exact, like its backward.  K2 sums in float32 and rounds once where
+#   the plain version rounds each of its 11 products and sums (2^-5 of the
+#   largest level value); against the float32 sum of its own formula
+#   (fpn_gather_plain(accumulate=float32)) it must sit within one
+#   bfloat16 step of each value, plus 2^-20 of the largest level value
+#   for float32 summation order (K2_BF16_SLACK).
 TOL = {"column_merge": {"out": 1e-6, "stats": 1e-5},
        "column_merge_bwd": {"dy": 1e-5, "dbias": 1e-4},
        "merge_taps": {"out": 1e-6},
        "merge_taps_bwd": {"dy": 0.0},
        "scatter_grid": {"grid": 0.0},
        "scatter_grid_bwd": {"d": 0.0},
-       "fpn_gather": {"out": 1e-5}}
+       "fpn_gather": {"out": 1e-5},
+       "column_merge_bf16": {"out": 2 ** -8, "stats": 2 ** -8},
+       "column_merge_bwd_bf16": {"dy": 2 ** -8, "dbias": 1e-5},
+       "merge_taps_bf16": {"out": 0.0},
+       "merge_taps_bwd_bf16": {"dy": 0.0},
+       "fpn_gather_bf16": {"out": 2 ** -5, "bf16_steps_vs_float32_sum": 1}}
+K2_BF16_SLACK = 2 ** -20
 # the card's model maps and one train step's gradients may sit this many
 # times further from a float64 reference than the CPU's float32 ones do
 # (phase_reference, phase_train_reference); a gradient's distance needs
@@ -121,6 +171,10 @@ DENSE_BATCH = 2
 KITTI_TRAIN, KITTI_VAL = 8, 4
 KITTI_CFG = {"batch_size": BATCH}
 KITTI_DEVICE = "cuda"
+# fields appended to every shipped configuration the smoke runs (none on
+# the card: the configurations run as written; a CPU rehearsal cuts them
+# to a tiny grid here)
+CONFIG_OVERRIDES = {}
 
 
 class SmokeFailure(RuntimeError):
@@ -190,33 +244,39 @@ def make_frames(cfg, n: int, seed: int, **kw):
 
 
 def kernel_inputs(det, frames):
-    """The arguments the serving path hands K1 and K2 for ``frames``, the
-    same modules stopped at each kernel's call, and the voxel rows the
-    dense-3D CML hands K4."""
+    """The arguments the serving path hands K1 and K2 for ``frames``, and
+    the voxel rows the dense-3D CML hands K4 (CML conv1's inputs), caught
+    inside ``det.maps``: forward pre-hooks on conv1 and the image head
+    compute each kernel's arguments from the module's own inputs, so under
+    ``use_bf16`` they come from the bfloat16 copies the path computes
+    with."""
     import torch
 
     from mvxnet_makise_tpu_torch.models.image_head import gather_image_size
-    from mvxnet_makise_tpu_torch.train.step import frames_to_batch
 
-    cfg, model = det.cfg, det.model
-    pts, nums, imgs = det.assemble(frames)
-    with torch.no_grad():
-        b = frames_to_batch(torch.as_tensor(pts).to(det.device),
-                            torch.as_tensor(nums).to(det.device),
-                            torch.as_tensor(imgs).to(det.device), cfg)
-        gather_args = (model.head.pyramid(b.images),
-                       b.sorted_points[..., 4:6].contiguous(),
-                       b.sorted_kept.contiguous(),
-                       gather_image_size(cfg.image_size, cfg.image_min_side))
-        x, z0 = model.fused_inputs(b.sorted_points, b.sorted_kept,
-                                   b.sorted_seg, b.counts, b.vmask,
-                                   b.images)
-        bb = model.backbone
-        vfeat = bb.voxel_features(x, b.sorted_kept, b.sorted_seg, b.counts,
-                                  b.vmask, z0)
-        merge_args = tuple(bb.cml.conv1.merge_inputs(vfeat, b.coords,
-                                                     b.vmask))
-    return merge_args, gather_args, (vfeat, b.coords, b.vmask)
+    caught = {}
+
+    def at_conv1(conv1, args):
+        caught["merge"] = tuple(conv1.merge_inputs(*args))
+        caught["scatter"] = tuple(args)
+
+    def at_head(head, args):
+        images, points_rc, point_mask = args[:3]
+        caught["gather"] = (head.pyramid(images), points_rc.contiguous(),
+                            point_mask.contiguous(),
+                            gather_image_size(head.image_size,
+                                              head.image_min_side))
+
+    model = det.model
+    hooks = [model.backbone.cml.conv1.register_forward_pre_hook(at_conv1),
+             model.head.register_forward_pre_hook(at_head)]
+    try:
+        with torch.no_grad():
+            det.maps(*det.assemble(frames))
+    finally:
+        for h in hooks:
+            h.remove()
+    return caught["merge"], caught["gather"], caught["scatter"]
 
 
 # ------------------------------------------------------------- K1
@@ -269,7 +329,7 @@ def bound_of(n_bytes: float, n_ops: float) -> tuple:
         else "operations"
 
 
-def phase_column_merge(merge_args, grid_shape):
+def phase_column_merge(merge_args, grid_shape, name="column_merge"):
     import torch
 
     from mvxnet_makise_tpu_torch.ops import column_merge as cm
@@ -290,7 +350,7 @@ def phase_column_merge(merge_args, grid_shape):
     del out2, stats2
     err_out, rel_out = rel_err(out, want_out)
     err_stats, rel_stats = rel_err(stats, want_stats)
-    tol = TOL["column_merge"]
+    tol = TOL[name]
     ok = rel_out <= tol["out"] and rel_stats <= tol["stats"] and same_twice
 
     dest, buf = merge_index_add(y, col_cy, bounds, grid_shape)
@@ -310,7 +370,7 @@ def phase_column_merge(merge_args, grid_shape):
     # one square
     n_ops = live * 9 * R + 5 * cells
     bound_ms = max(n_bytes / HBM_BYTES_PER_S, n_ops / F32_FLOP_PER_S) * 1e3
-    rec = {"phase": "kernel", "name": "column_merge", "ok": ok,
+    rec = {"phase": "kernel", "name": name, "ok": ok,
            "shapes": {"y": list(y.shape), "dtype": str(y.dtype),
                       "out": list(out.shape), "live_columns": live},
            "launch": launch_config(cm.KERNEL),
@@ -327,10 +387,12 @@ def phase_column_merge(merge_args, grid_shape):
     return rec
 
 
-def phase_column_merge_bwd(merge_args, grid_shape):
+def phase_column_merge_bwd(merge_args, grid_shape, name="column_merge_bwd"):
     """K1's backward: the pre/dbias kernel pair, then K3's backward
     gather of pre, against autograd through K1's plain version on the
-    same out, g_out and g_stats."""
+    same out, g_out and g_stats (float32), or, in bfloat16, against
+    ``_merge_fused_bwd``'s formula on the kernel's own output with dy by
+    autograd through the plain merge (TOL)."""
     import torch
 
     from mvxnet_makise_tpu_torch.ops import column_merge as cm
@@ -340,7 +402,8 @@ def phase_column_merge_bwd(merge_args, grid_shape):
     B, V, _, R = y.shape
     gen = torch.Generator(device=y.device).manual_seed(0)
     out, stats = cm.merge_taps_fused(y, col_cy, bounds, bias, grid_shape)
-    g_out = torch.randn(out.shape, generator=gen, device=y.device)
+    g_out = torch.randn(out.shape, generator=gen, device=y.device
+                        ).to(y.dtype)
     g_stats = torch.randn(stats.shape, generator=gen, device=y.device) * 0.1
     before = (cm.BWD_KERNEL.launches, cm.TAPS_BWD_KERNEL.launches)
     dy, dbias = cm.merge_taps_fused_backward(out, g_out, g_stats, col_cy,
@@ -352,23 +415,34 @@ def phase_column_merge_bwd(merge_args, grid_shape):
                                                bounds, V, grid_shape)
     yp = y.detach().requires_grad_()
     bp = bias.detach().requires_grad_()
-    want_out, want_stats = cm.merge_taps_fused_plain(yp, col_cy, bounds, bp,
-                                                     grid_shape)
-    outs, ins, grads = (want_out, want_stats), (yp, bp), (g_out, g_stats)
-    want_dy, want_dbias = torch.autograd.grad(outs, ins, grads,
-                                              retain_graph=True)
+    if y.dtype == torch.float32:
+        want_out, want_stats = cm.merge_taps_fused_plain(yp, col_cy, bounds,
+                                                         bp, grid_shape)
+        outs, ins, grads = (want_out, want_stats), (yp, bp), (g_out,
+                                                              g_stats)
+    else:
+        o = out.float()
+        pre = ((g_out.float() + g_stats[:, :, 0, None].to(y.dtype).float()
+                + 2 * o * g_stats[:, :, 1, None].to(y.dtype).float())
+               * (o > 0)).to(y.dtype)
+        want_out = cm.merge_taps_plain(yp, col_cy, bounds, grid_shape)
+        want_stats = pre.float().sum((0, 1, 2))
+        outs, ins, grads = (want_out,), (yp,), (pre,)
+    want = torch.autograd.grad(outs, ins, grads, retain_graph=True)
+    want_dy = want[0]
+    want_dbias = want[1] if y.dtype == torch.float32 else want_stats
     torch.cuda.synchronize()
     same_twice = torch.equal(dy, dy2) and torch.equal(dbias, dbias2)
     err_dy, rel_dy = rel_err(dy, want_dy)
     err_db, rel_db = rel_err(dbias, want_dbias)
-    tol = TOL["column_merge_bwd"]
+    tol = TOL[name]
     ok = rel_dy <= tol["dy"] and rel_db <= tol["dbias"] and same_twice
 
     times = timings(
         lambda: cm.merge_taps_fused_backward(out, g_out, g_stats, col_cy,
                                              bounds, V, grid_shape),
         lambda: torch.autograd.grad(outs, ins, grads, retain_graph=True))
-    del outs, ins, grads, want_out, want_stats, want_dy, want_dbias
+    del outs, ins, grads, want, want_out, want_stats, want_dy, want_dbias
 
     es = y.element_size()
     cells = B * nx * ny * R
@@ -378,7 +452,7 @@ def phase_column_merge_bwd(merge_args, grid_shape):
     # per cell: two adds, two multiplies, the ReLU test, the dbias add
     n_ops = 6 * cells
     bound_ms, bound_by = bound_of(n_bytes, n_ops)
-    rec = {"phase": "kernel", "name": "column_merge_bwd", "ok": ok,
+    rec = {"phase": "kernel", "name": name, "ok": ok,
            "shapes": {"out": list(out.shape), "dy": list(dy.shape),
                       "dtype": str(out.dtype)},
            "launch": launch_config(cm.BWD_KERNEL, cm.TAPS_BWD_KERNEL),
@@ -393,9 +467,10 @@ def phase_column_merge_bwd(merge_args, grid_shape):
     return rec
 
 
-def phase_merge_taps(merge_args, grid_shape):
+def phase_merge_taps(merge_args, grid_shape, suffix=""):
     """K3 forward (K1's kernel without its epilogue) and backward (the
-    windowed gather), each against its plain version."""
+    windowed gather), each against its plain version; ``suffix`` names
+    the dtype's records ("_bf16")."""
     import torch
 
     from mvxnet_makise_tpu_torch.ops import column_merge as cm
@@ -411,7 +486,7 @@ def phase_merge_taps(merge_args, grid_shape):
     want = cm.merge_taps_plain(y, col_cy, bounds, grid_shape)
     torch.cuda.synchronize()
     err, rel = rel_err(out, want)
-    tol = TOL["merge_taps"]
+    tol = TOL["merge_taps" + suffix]
     dest, buf = merge_index_add(y, col_cy, bounds, grid_shape)
     rows = y.reshape(-1, R)
     times = timings(
@@ -424,7 +499,8 @@ def phase_merge_taps(merge_args, grid_shape):
                + B * nx * ny * R * es)
     n_ops = live * 9 * R
     bound_ms, bound_by = bound_of(n_bytes, n_ops)
-    fwd = {"phase": "kernel", "name": "merge_taps", "ok": rel <= tol["out"],
+    fwd = {"phase": "kernel", "name": "merge_taps" + suffix,
+           "ok": rel <= tol["out"],
            "shapes": {"y": list(y.shape), "out": list(out.shape),
                       "live_columns": live},
            "launch": launch_config(cm.TAPS_KERNEL),
@@ -435,7 +511,8 @@ def phase_merge_taps(merge_args, grid_shape):
     check(fwd["ok"], f"K3 disagrees with its plain version: {rel}")
 
     g = torch.randn(out.shape, device=y.device,
-                    generator=torch.Generator(device=y.device).manual_seed(1))
+                    generator=torch.Generator(device=y.device).manual_seed(1)
+                    ).to(y.dtype)
     yq = y.detach().requires_grad_()
     o = cm.merge_taps(yq, col_cy, bounds, grid_shape)
     launches0 = cm.TAPS_BWD_KERNEL.launches
@@ -447,7 +524,7 @@ def phase_merge_taps(merge_args, grid_shape):
     (want_dy,) = torch.autograd.grad(wp, yp, g, retain_graph=True)
     torch.cuda.synchronize()
     err, rel = rel_err(dy, want_dy)
-    tol = TOL["merge_taps_bwd"]
+    tol = TOL["merge_taps_bwd" + suffix]
     # yardstick: one index_select of the cotangent rows, with a zero row
     # for the taps that fall out of the grid
     gpad = torch.cat([g.reshape(-1, R), g.new_zeros(1, R)])
@@ -460,7 +537,7 @@ def phase_merge_taps(merge_args, grid_shape):
     n_bytes = (B * V * 9 * R * es + touched * R * es + col_cy.numel() * 4
                + bounds.numel() * 4)
     bound_ms, bound_by = bound_of(n_bytes, 0)
-    bwd = {"phase": "kernel", "name": "merge_taps_bwd",
+    bwd = {"phase": "kernel", "name": "merge_taps_bwd" + suffix,
            "ok": rel <= tol["dy"],
            "shapes": {"g": list(g.shape), "dy": list(dy.shape),
                       "touched_cells": touched},
@@ -600,7 +677,7 @@ def grid_sample_levels(features, points_rc, image_size, eps):
         _, Hf, Wf, _ = f.shape
         g = torch.stack([2 * c / max(Wf - 1, 1) - 1,
                          2 * r / max(Hf - 1, 1) - 1], dim=-1)
-        grids.append(g[:, None].contiguous())
+        grids.append(g[:, None].to(f.dtype).contiguous())
 
     def run():
         return [F.grid_sample(f.permute(0, 3, 1, 2), g, mode="bilinear",
@@ -609,7 +686,18 @@ def grid_sample_levels(features, points_rc, image_size, eps):
     return run
 
 
-def phase_fpn_gather(gather_args, eps, swapped):
+def bf16_steps(got, want, slack: float) -> float:
+    """Largest |got - want| beyond ``slack``, in bfloat16 steps (units in
+    the last place) at max(|got|, |want|) of each value."""
+    import torch
+
+    g, w = got.float(), want.float()
+    _, e = torch.frexp(torch.maximum(g.abs(), w.abs()))
+    step = torch.ldexp(torch.ones_like(g), e - 8)
+    return float(((g - w).abs() - slack).clamp(min=0).div(step).max())
+
+
+def phase_fpn_gather(gather_args, eps, swapped, name="fpn_gather"):
     import torch
 
     from mvxnet_makise_tpu_torch.ops import gather as ga
@@ -623,8 +711,19 @@ def phase_fpn_gather(gather_args, eps, swapped):
                                swapped_weights=swapped)
     torch.cuda.synchronize()
     err, rel = rel_err(got, want)
-    tol = TOL["fpn_gather"]
-    ok = rel <= tol["out"]
+    tol = TOL[name]
+    steps = None
+    if got.dtype == torch.bfloat16:
+        # relative to the largest level value (TOL)
+        scale = max(float(f.float().abs().max()) for f in feats)
+        rel = err / scale
+        emulated = ga.fpn_gather_plain(feats, rc, valid, gsize, eps=eps,
+                                       swapped_weights=swapped,
+                                       accumulate=torch.float32)
+        steps = bf16_steps(got, emulated, K2_BF16_SLACK * scale)
+        del emulated
+    ok = rel <= tol["out"] and (
+        steps is None or steps <= tol["bf16_steps_vs_float32_sum"])
 
     times = timings(
         lambda: ga.fpn_gather(feats, rc, valid, gsize, eps=eps,
@@ -638,6 +737,7 @@ def phase_fpn_gather(gather_args, eps, swapped):
     # valid point touches read once
     B, P = valid.shape
     ctot = sum(f.shape[-1] for f in feats)
+    es = feats[0].element_size()
     touched = 0
     for f, (_, _, r0, c0, r1, c1) in zip(
             feats, gather_geometry(feats, rc, gsize, eps)):
@@ -646,25 +746,27 @@ def phase_fpn_gather(gather_args, eps, swapped):
         cells = torch.stack([base + r0 * Wf + c0, base + r1 * Wf + c0,
                              base + r0 * Wf + c1, base + r1 * Wf + c1],
                             -1)[valid]
-        touched += int(torch.unique(cells).numel()) * C * 4
+        touched += int(torch.unique(cells).numel()) * C * es
     n_valid = int(valid.sum())
-    n_bytes = B * P * ctot * 4 + rc.numel() * 4 + valid.numel() + touched
+    n_bytes = B * P * ctot * es + rc.numel() * 4 + valid.numel() + touched
     n_ops = n_valid * ctot * 7          # 4 multiplies, 3 adds per value
     bound_ms = max(n_bytes / HBM_BYTES_PER_S, n_ops / F32_FLOP_PER_S) * 1e3
-    rec = {"phase": "kernel", "name": "fpn_gather", "ok": ok,
+    rec = {"phase": "kernel", "name": name, "ok": ok,
            "shapes": {"levels": [list(f.shape) for f in feats],
                       "points": list(rc.shape), "valid_points": n_valid,
                       "out": list(got.shape)},
            "swapped_weights": swapped,
            "launch": launch_config(ga.KERNEL),
-           "max_abs_err": err, "rel_err": rel, "tolerance": tol, **times,
+           "max_abs_err": err, "rel_err": rel,
+           "bf16_steps_vs_float32_sum": steps, "tolerance": tol, **times,
            "library_call": "F.grid_sample, one call per level",
            "bytes": n_bytes, "touched_feature_bytes": touched, "ops": n_ops,
            "bound_ms": bound_ms,
            "bound_by": ("bytes" if n_bytes / HBM_BYTES_PER_S
                         >= n_ops / F32_FLOP_PER_S else "operations")}
     emit(rec)
-    check(ok, f"K2 disagrees with its plain version: {rel}")
+    check(ok, f"K2 ({name}) disagrees with its plain version: {rel}, "
+              f"{steps} bfloat16 steps from its float32 sum")
     return rec
 
 
@@ -833,16 +935,8 @@ def model_maps(det, arrays):
     computed in the detector's own device and dtype."""
     import torch
 
-    from mvxnet_makise_tpu_torch.train.step import (
-        frames_to_batch,
-        model_inputs,
-    )
-
-    pts, nums, imgs = (torch.as_tensor(a).to(det.device) for a in arrays)
     with torch.no_grad():
-        b = frames_to_batch(pts.to(det.dtype), nums, imgs.to(det.dtype),
-                            det.cfg)
-        return [m.cpu().double() for m in det.model(*model_inputs(b))]
+        return [m.cpu().double() for m in det.maps(*arrays)]
 
 
 def phase_reference(device):
@@ -1001,7 +1095,10 @@ def step_split(model, run_step) -> dict:
         h.remove()
     out = {"step_ms": start.elapsed_time(end)}
     for name, rec in recs.items():
-        fwd = sum(a.elapsed_time(b) for a, b in rec["f"])
+        # under remat the backward's recompute of the CML stops once it
+        # has what the backward needs: a module whose recomputed forward
+        # was cut short has no end event, and that part is not counted
+        fwd = sum(a.elapsed_time(b) for a, b in rec["f"] if b is not None)
         bwd = (max(start.elapsed_time(e) for e in rec["b1"])
                - min(start.elapsed_time(e) for e in rec["b0"])
                if rec["b0"] and rec["b1"] else None)
@@ -1011,7 +1108,8 @@ def step_split(model, run_step) -> dict:
 
 def profile_step(run_step) -> dict:
     """Kernel-busy ms, the device's idle share and the top kernels over
-    one train step (torch.profiler)."""
+    one train step (torch.profiler); and where the host's time goes: the
+    operators with the most self CPU time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1031,11 +1129,17 @@ def profile_step(run_step) -> dict:
             k[1] += 1
     busy_ms = sum(v[0] for v in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])
+    host = sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)
     return {"step_wall_ms": wall_ms, "kernel_busy_ms": busy_ms,
             "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
             "kernel_launches": sum(v[1] for v in kernels.values()),
             "top": [{"kernel": k[:100], "device_ms": v[0], "calls": v[1]}
-                    for k, v in top[:15]]}
+                    for k, v in top[:15]],
+            "host_top": [{"op": e.key[:80],
+                          "self_cpu_ms": e.self_cpu_time_total / 1e3,
+                          "calls": e.count} for e in host[:10]]}
 
 
 def timed_steps(step, state, batch, n: int):
@@ -1378,11 +1482,55 @@ def run_tool(main, args) -> str:
     return out.getvalue()
 
 
+class RecordedEvals(list):
+    """Within ``with``: every AP dict ``eval.runner.run_eval`` returns (the
+    training loop's, then ``tools.evaluate``'s), in order."""
+
+    def __enter__(self):
+        from mvxnet_makise_tpu_torch.eval import runner
+
+        self._run_eval = run_eval = runner.run_eval
+
+        def recorded(*args, **kw):
+            self.append(run_eval(*args, **kw))
+            return self[-1]
+        runner.run_eval = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from mvxnet_makise_tpu_torch.eval import runner
+
+        runner.run_eval = self._run_eval
+        return False
+
+
+def parse_results(out_dir, fids, classes=("Car",)) -> tuple:
+    """(every result file there and parseable, number of lines):
+    ``tools.detect``'s KITTI lines for ``fids``."""
+    import numpy as np
+
+    ok, n_lines = True, 0
+    for fid in fids:
+        path = os.path.join(out_dir, f"{fid}.txt")
+        if not os.path.exists(path):
+            ok = False
+            continue
+        with open(path) as f:
+            for ln in f.read().splitlines():
+                parts = ln.split()
+                n_lines += 1
+                ok &= (len(parts) == 16 and parts[0] in classes
+                       and bool(np.isfinite(np.asarray(
+                           parts[1:], np.float64)).all()))
+    return bool(ok), n_lines
+
+
 def phase_kitti(kernels):
-    """The dataset path through the tools (module docstring, phase 9)."""
+    """The dataset path through the tools (module docstring, phase 9).
+    Returns (record, the working directory, the tree's root, the frame
+    ids); the caller removes the directory."""
     import glob
     import pickle
-    import shutil
     import tempfile
 
     import numpy as np
@@ -1390,7 +1538,6 @@ def phase_kitti(kernels):
     from mvxnet_makise_tpu_torch.config import Config
     from mvxnet_makise_tpu_torch.data.image_io import read_png
     from mvxnet_makise_tpu_torch.data.synthetic import write_kitti_tree
-    from mvxnet_makise_tpu_torch.eval import runner
     from mvxnet_makise_tpu_torch.tools import (
         create_gtdatabase,
         cropdata,
@@ -1443,14 +1590,7 @@ def phase_kitti(kernels):
     check(db_samples > 0, "the GT database is empty")
 
     # every AP the tools compute, in order: the loop's, then evaluate's
-    evals = []
-    run_eval = runner.run_eval
-
-    def recorded(*args, **kw):
-        evals.append(run_eval(*args, **kw))
-        return evals[-1]
-    runner.run_eval = recorded
-    try:
+    with RecordedEvals() as evals:
         for k in kernels:
             k.launches = 0
         t0 = time.perf_counter()
@@ -1460,8 +1600,6 @@ def phase_kitti(kernels):
         train_s = time.perf_counter() - t0
         launches = {k.name: k.launches for k in kernels}
         run_tool(evaluate.main, [root, "-r", "1", "--config", cfg_path, *dev])
-    finally:
-        runner.run_eval = run_eval
     plain_log = run_tool(train_cli.main, [root, "-n", "1", "--batch-size",
                                           str(BATCH), "--no-augment",
                                           "--config", configs["plain"], *dev])
@@ -1472,19 +1610,7 @@ def phase_kitti(kernels):
     out_dir = os.path.join(work, "results")
     run_tool(detect.main, [root, "-o", out_dir, "-r", "1", "--batch",
                            str(BATCH), "--config", cfg_path, *dev])
-    lines_ok, n_lines = True, 0
-    for fid in ids[KITTI_TRAIN:]:
-        path = os.path.join(out_dir, f"{fid}.txt")
-        if not os.path.exists(path):
-            lines_ok = False
-            continue
-        with open(path) as f:
-            for ln in f.read().splitlines():
-                parts = ln.split()
-                n_lines += 1
-                lines_ok &= (len(parts) == 16 and parts[0] == "Car"
-                             and bool(np.isfinite(np.asarray(
-                                 parts[1:], np.float64)).all()))
+    lines_ok, n_lines = parse_results(out_dir, ids[KITTI_TRAIN:])
 
     timer, plain_timer = phase_timer(log), phase_timer(plain_log)
     needed = ("column_merge", "column_merge_bwd", "merge_taps_bwd",
@@ -1520,8 +1646,399 @@ def phase_kitti(kernels):
            "detect_lines": n_lines, "detect_lines_parse": bool(lines_ok)}
     emit(rec)
     check(ok, "kitti phase failed: see its record")
-    shutil.rmtree(work)            # the tree and two epochs of checkpoints
+    return rec, work, root, ids
+
+
+# ------------------------------------------------------------- shipped configs
+
+
+def config_yaml(work, name, **extra) -> str:
+    """``configs/<name>.yaml`` as written, with CONFIG_OVERRIDES and
+    ``extra`` fields appended (a checkpoint directory of the phase's own),
+    copied into ``work``."""
+    with open(os.path.join(ROOT, "configs", name + ".yaml")) as f:
+        text = f.read()
+    path = os.path.join(work, name + ".yaml")
+    fields = {**CONFIG_OVERRIDES, **extra}
+    with open(path, "w") as f:
+        f.write(text + "\n" + "".join(
+            f"{k}: {list(v) if isinstance(v, tuple) else v}\n"
+            for k, v in fields.items()))
+    return path
+
+
+def serve_stream(det, frames, batch_size, kernels) -> dict:
+    """``detect_stream`` over ``frames`` after a warm batch, with every
+    kernel's count set to 0 just before: ms per frame, detections per
+    frame, launches, peak device memory."""
+    import torch
+
+    det.warm((batch_size,))
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    streamed = list(det.detect_stream(frames, batch_size=batch_size))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+    check(len(streamed) == len(frames), "detect_stream lost frames")
+    return {"detect_stream_ms_per_frame": ms, "frames": len(frames),
+            "batch_size": batch_size,
+            "detections_per_frame": check_detections(streamed, det.cfg),
+            "launches": {k.name: k.launches for k in kernels},
+            "peak_device_mib": torch.cuda.max_memory_allocated() / 2**20}
+
+
+def tools_chain(root, val_ids, cfg_path, kernels, extra=()) -> dict:
+    """``tools.train`` for one epoch with the val AP (the GT-paste
+    augmentation: the tree has its database), ``tools.evaluate`` and
+    ``tools.detect`` on the card, with ``extra`` options; the kernels'
+    counts are set to 0 just before the training and read just after."""
+    import torch
+
+    from mvxnet_makise_tpu_torch.tools import detect, evaluate
+    from mvxnet_makise_tpu_torch.tools import train as train_cli
+
+    dev = ["--config", cfg_path, "--device", KITTI_DEVICE, *extra]
+    # training runs under PyTorch's default cuDNN choice, as tools.train
+    # runs it alone (a Detector sets cudnn.deterministic process-wide)
+    torch.backends.cudnn.deterministic = False
+    with RecordedEvals() as evals:
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        log = run_tool(train_cli.main, [root, "-n", "1", "--eval-every",
+                                        "1", *dev])
+        train_s = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels}
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        run_tool(evaluate.main, [root, "-r", "1", *dev])
+    out_dir = os.path.splitext(cfg_path)[0] + "_results"
+    run_tool(detect.main, [root, "-o", out_dir, "-r", "1", *dev])
+    lines_ok, n_lines = parse_results(out_dir, val_ids)
+    return {"train_seconds": train_s, "launches": launches,
+            "peak_device_mib_epoch": peak,
+            "val_line": [ln for ln in log.splitlines()
+                         if " val Car: AP=" in ln],
+            "loop_phases": phase_timer(log),
+            "ap": evals[0] if evals else None,
+            "evaluate_equals_loop": len(evals) == 2 and evals[0] == evals[1],
+            "detect_lines": n_lines, "detect_lines_parse": lines_ok}
+
+
+def phase_full_fusion(device, kernels, work, root, val_ids):
+    """``configs/full_fusion.yaml`` as written (bfloat16, remat, batch 4,
+    32768 points): the tools on the kitti tree, FIXED_STEPS steps on one
+    fixed batch, one step without remat, ``detect_stream``."""
+    import numpy as np
+    import torch
+
+    from mvxnet_makise_tpu_torch.config import load_config
+    from mvxnet_makise_tpu_torch.ops import column_merge
+    from mvxnet_makise_tpu_torch.ops.assign import create_anchors
+    from mvxnet_makise_tpu_torch.serve import Detector
+    from mvxnet_makise_tpu_torch.train.loop import (
+        build_model_and_state,
+        make_full_train_step,
+    )
+
+    path = config_yaml(work, "full_fusion",
+                       checkpoint_dir=os.path.join(work, "ckpt_ff"))
+    cfg = load_config(path)
+    check(cfg.use_bf16 and cfg.remat and cfg.batch_size == 4
+          and cfg.max_points == 32768, f"full_fusion.yaml reads {cfg}")
+    chain = tools_chain(root, val_ids, path, kernels)
+    needed = ("column_merge", "column_merge_bwd", "merge_taps_bwd",
+              "fpn_gather")
+    missing = [n for n in needed if chain["launches"][n] == 0]
+    steps = KITTI_TRAIN // cfg.batch_size
+    # remat: K1 runs again when the backward recomputes the CML; one
+    # more launch per eval batch
+    k1_expected = 2 * steps + -(-KITTI_VAL // min(cfg.batch_size, 4))
+
+    anchors = torch.from_numpy(create_anchors(
+        cfg.feature_map_shape, cfg.velo_range, cfg.anchor_sizes)).to(device)
+    frames = make_train_frames(cfg, cfg.batch_size, seed=3)
+    batch = fixed_batch(cfg, frames, device)
+    step = make_full_train_step(cfg, anchors)
+    model, st = build_model_and_state(cfg, device=device, seed=0)
+    extractor = {k: v.clone()
+                 for k, v in model.head.extractor.state_dict().items()}
+    torch.cuda.reset_peak_memory_stats()
+    first, _ = timed_steps(step, st, batch, 1)
+    bad = bad_gradients(model)
+    masters_f32 = all(p.dtype == torch.float32 and (
+        p.grad is None or p.grad.dtype == torch.float32)
+        for p in model.parameters())
+    column_merge.KERNEL.launches = 0
+    losses, times = timed_steps(step, st, batch, FIXED_STEPS - 1)
+    k1_per_step = column_merge.KERNEL.launches / (FIXED_STEPS - 1)
+    losses = first + losses
+    peak_remat = torch.cuda.max_memory_allocated() / 2**20
+    extractor_unchanged = all(
+        torch.equal(v, extractor[k])
+        for k, v in model.head.extractor.state_dict().items())
+    split = step_split(model, lambda: step(st, *batch))
+    prof = profile_step(lambda: step(st, *batch))
+    del model, st, extractor
+    torch.cuda.empty_cache()
+    plain = cfg.replace(remat=False)
+    _, st = build_model_and_state(plain, device=device, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    column_merge.KERNEL.launches = 0
+    _, plain_times = timed_steps(make_full_train_step(plain, anchors), st,
+                                 batch, 1)
+    k1_plain = column_merge.KERNEL.launches
+    peak_plain = torch.cuda.max_memory_allocated() / 2**20
+    del st
+    torch.cuda.empty_cache()
+
+    det = Detector.create(cfg, checkpoint_epoch=1, device=device)
+    served = make_frames(cfg, FRAMES, seed=4)
+    with torch.no_grad():
+        maps = det.maps(*det.assemble(served[:1]))
+    serve = serve_stream(det, served, cfg.batch_size, kernels)
+    # the kernels cuDNN picks for the bfloat16 convolutions under
+    # cudnn.deterministic (the Detector's setting), by name
+    serve["profile"] = profile_step(
+        lambda: det.detect_frames(served[:cfg.batch_size]))
+    det.close()
+    del det
+    torch.cuda.empty_cache()
+
+    ok = (not missing and chain["evaluate_equals_loop"]
+          and len(chain["val_line"]) == 1 and chain["detect_lines_parse"]
+          and chain["launches"]["column_merge"] == k1_expected
+          and not bad and masters_f32 and extractor_unchanged
+          and np.isfinite(losses).all() and losses[-1] < losses[0]
+          and k1_per_step == 2 and k1_plain == 1
+          and peak_remat < peak_plain
+          and maps[0].dtype == maps[1].dtype == torch.bfloat16
+          and serve["launches"]["column_merge"] > 0
+          and serve["launches"]["fpn_gather"] > 0)
+    rec = {"phase": "full_fusion", "ok": bool(ok),
+           "config": "configs/full_fusion.yaml as written (bfloat16, "
+                     "remat, batch 4, 32768 points) on the kitti tree",
+           **chain, "missing_kernels": missing,
+           "k1_launches_expected": k1_expected,
+           "params_without_gradient": bad,
+           "masters_and_gradients_float32": masters_f32,
+           "extractor_unchanged": extractor_unchanged,
+           "fixed_batch_losses": losses,
+           "ms_per_step": float(np.median(times)), "ms_per_step_all": times,
+           "k1_launches_per_step": {"remat": k1_per_step,
+                                    "no_remat": k1_plain},
+           "peak_device_mib_step": {"remat": peak_remat,
+                                    "no_remat": peak_plain},
+           "ms_per_step_no_remat": plain_times[0],
+           "split_device_ms": split, "profile": prof,
+           "map_dtypes": [str(m.dtype) for m in maps],
+           "serve": serve}
+    emit(rec)
+    check(ok, "full_fusion phase failed: see its record")
     return rec
+
+
+def phase_lidar_only(device, kernels, work, root, val_ids):
+    """``configs/lidar_only.yaml`` with ``--lidar-only`` through the tools,
+    then ``detect_stream``: float32 maps (JAX promotes the bfloat16
+    parameters against the float32 point features), K1 and its backward
+    on the path, K2 not."""
+    import torch
+
+    from mvxnet_makise_tpu_torch.config import load_config
+    from mvxnet_makise_tpu_torch.serve import Detector
+
+    path = config_yaml(work, "lidar_only",
+                       checkpoint_dir=os.path.join(work, "ckpt_lidar"))
+    cfg = load_config(path)
+    check(cfg.use_bf16, "lidar_only.yaml does not set use_bf16")
+    chain = tools_chain(root, val_ids, path, kernels, ["--lidar-only"])
+    needed = ("column_merge", "column_merge_bwd", "merge_taps_bwd")
+    missing = [n for n in needed if chain["launches"][n] == 0]
+    det = Detector.create(cfg, checkpoint_epoch=1, device=device,
+                          with_images=False)
+    frames = make_frames(cfg, FRAMES, seed=6)
+    with torch.no_grad():
+        maps = det.maps(*det.assemble(frames[:1]))
+    serve = serve_stream(det, frames, cfg.batch_size, kernels)
+    det.close()
+    del det
+    torch.cuda.empty_cache()
+    ok = (not missing and chain["launches"]["fpn_gather"] == 0
+          and chain["evaluate_equals_loop"] and len(chain["val_line"]) == 1
+          and chain["detect_lines_parse"]
+          and maps[0].dtype == maps[1].dtype == torch.float32
+          and serve["launches"]["column_merge"] > 0)
+    rec = {"phase": "lidar_only", "ok": bool(ok),
+           "config": "configs/lidar_only.yaml as written (bfloat16 "
+                     "parameters, float32 compute) with --lidar-only",
+           **chain, "missing_kernels": missing,
+           "map_dtypes": [str(m.dtype) for m in maps], "serve": serve}
+    emit(rec)
+    check(ok, "lidar_only phase failed: see its record")
+    return rec
+
+
+def phase_shipped_configs(device, kernels, work):
+    """``configs/serving_economy.yaml`` (half RPN trunk, image_min_side
+    400, batch 8): one ``detect_stream`` of 2 * its batch;
+    ``configs/multiclass.yaml``: two train steps on multi-class frames."""
+    import numpy as np
+    import torch
+
+    from mvxnet_makise_tpu_torch.config import load_config
+    from mvxnet_makise_tpu_torch.data.kitti import KittiFrame
+    from mvxnet_makise_tpu_torch.data.synthetic import (
+        synthetic_frame_multiclass,
+    )
+    from mvxnet_makise_tpu_torch.ops.assign import create_anchors
+    from mvxnet_makise_tpu_torch.serve import Detector
+    from mvxnet_makise_tpu_torch.train.loop import (
+        build_model_and_state,
+        make_full_train_step,
+    )
+
+    econ = load_config(config_yaml(work, "serving_economy"))
+    det = Detector.create(econ, checkpoint_epoch=0, seed=0, device=device)
+    serve = serve_stream(det, make_frames(econ, 2 * econ.batch_size,
+                                          seed=7),
+                         econ.batch_size, kernels)
+    det.close()
+    del det
+    torch.cuda.empty_cache()
+
+    torch.backends.cudnn.deterministic = False
+    multi = load_config(config_yaml(
+        work, "multiclass", checkpoint_dir=os.path.join(work, "ckpt_mc")))
+    rng = np.random.default_rng(8)
+    frames = []
+    for i in range(multi.batch_size):
+        pts, calib, image, boxes = synthetic_frame_multiclass(rng, multi)
+        frames.append(KittiFrame(f"mc{i}", pts, image, calib, boxes))
+    anchors = torch.from_numpy(create_anchors(
+        multi.feature_map_shape, multi.velo_range,
+        multi.anchor_sizes)).to(device)
+    model, st = build_model_and_state(multi, device=device, seed=0)
+    batch = fixed_batch(multi, frames, device)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = timed_steps(make_full_train_step(multi, anchors), st,
+                                batch, 2)
+    launches = {k.name: k.launches for k in kernels}
+    bad = bad_gradients(model)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    del model, st
+    torch.cuda.empty_cache()
+    ok = (serve["launches"]["column_merge"] > 0
+          and serve["launches"]["fpn_gather"] > 0
+          and np.isfinite(losses).all() and not bad
+          and launches["column_merge"] == 4
+          and launches["column_merge_bwd"] == 2)
+    rec = {"phase": "shipped_configs", "ok": bool(ok),
+           "serving_economy": {"config": "configs/serving_economy.yaml as "
+                                         "written (bfloat16)", **serve},
+           "multiclass": {"config": "configs/multiclass.yaml as written "
+                                    "(bfloat16, remat, 3 classes)",
+                          "losses": losses, "ms_per_step_all": times,
+                          "launches": launches,
+                          "params_without_gradient": bad,
+                          "peak_device_mib": peak}}
+    emit(rec)
+    check(ok, "shipped_configs phase failed: see its record")
+    return rec
+
+
+def phase_reference_bf16(device):
+    """The small configuration under use_bf16: the card's bfloat16 maps
+    at most 2x as far from a float64 CPU run of the same weights as the
+    CPU's own bfloat16 maps (floor 1e-2 of the largest value; the
+    untrained model in bfloat16 is near chaos, see
+    tests/test_torch_bf16.py); the LiDAR-only model's maps float32."""
+    import torch
+
+    from mvxnet_makise_tpu_torch.config import Config
+    from mvxnet_makise_tpu_torch.models.mvxnet import build_model
+    from mvxnet_makise_tpu_torch.serve import Detector
+
+    cfg = Config(velo_range=(0.0, -8.0, -3.0, 12.8, 8.0, 1.0),
+                 voxel_shape=(32, 40, 10), image_size=(64, 96),
+                 max_points=1024, max_voxels=256, samples_per_voxel=8,
+                 assign_window=6, image_min_side=0, use_bf16=True)
+    gpu = Detector.create(cfg, checkpoint_epoch=0, seed=1, device=device)
+    weights = {k: v.cpu() for k, v in gpu.model.state_dict().items()}
+    cpu16 = Detector.create(cfg, state_dict=weights, device="cpu")
+    ref = build_model(cfg, seed=None, device="cpu")
+    ref.load_state_dict(weights)
+    cpu64 = Detector(cfg.replace(use_bf16=False), ref.double())
+    frames = make_frames(cfg, 2, seed=1, num_cars=2, num_points=1200)
+    arrays = cpu16.assemble(frames)
+    want = model_maps(cpu64, arrays)
+    errs, dtypes = {}, {}
+    for name, det in (("card", gpu), ("cpu_bfloat16", cpu16)):
+        with torch.no_grad():
+            maps = det.maps(*arrays)
+        dtypes[name] = [str(m.dtype) for m in maps]
+        errs[name] = {m: rel_err(g.cpu().double(), w)[1]
+                      for m, g, w in zip(("score", "reg"), maps, want)}
+    lidar = Detector.create(cfg, checkpoint_epoch=0, seed=1, device=device,
+                            with_images=False)
+    with torch.no_grad():
+        lidar_dtypes = [str(m.dtype) for m in lidar.maps(*arrays)]
+    for d in (gpu, cpu16, cpu64, lidar):
+        d.close()
+    ok = (all(errs["card"][m] <= max(2 * errs["cpu_bfloat16"][m], 1e-2)
+              for m in ("score", "reg"))
+          and dtypes["card"] == ["torch.bfloat16"] * 2
+          and lidar_dtypes == ["torch.float32"] * 2)
+    emit({"phase": "reference_bf16", "ok": ok,
+          "config": "voxel_shape (32, 40, 10), image 64x96, native scale, "
+                    "use_bf16", "rel_err_vs_cpu_float64": errs,
+          "factor": 2.0, "floor": 1e-2, "map_dtypes": dtypes,
+          "lidar_only_map_dtypes": lidar_dtypes})
+    check(ok, f"card bfloat16 maps too far from the float64 reference: "
+              f"{errs}")
+
+
+def phase_kernels_bf16(device) -> list:
+    """K1, K1's backward, K3, K3's backward and K2 in bfloat16, on the
+    arguments the bfloat16 path hands them: ``configs/full_fusion.yaml``'s
+    Detector (random weights from a seed) on frames of that config (batch
+    4, 32768 points), caught inside its forward on the bfloat16 copies it
+    computes with (``kernel_inputs``)."""
+    import tempfile
+
+    import torch
+
+    from mvxnet_makise_tpu_torch.config import load_config
+    from mvxnet_makise_tpu_torch.serve import Detector
+
+    with tempfile.TemporaryDirectory() as work:
+        cfg = load_config(config_yaml(work, "full_fusion"))
+    det = Detector.create(cfg, checkpoint_epoch=0, seed=0, device=device)
+    try:
+        merge_args, gather_args, _ = kernel_inputs(
+            det, make_frames(cfg, cfg.batch_size, seed=0))
+        head = det.model.head
+        check(merge_args[0].dtype == gather_args[0][0].dtype
+              == torch.bfloat16, "full_fusion.yaml's kernel arguments are "
+              "not bfloat16")
+        emit({"phase": "kernel_inputs_bf16",
+              "config": "configs/full_fusion.yaml as written, random "
+                        "weights (seed 0), batch 4 synthetic frames",
+              "y": list(merge_args[0].shape),
+              "points": list(gather_args[1].shape)})
+        return [phase_column_merge(merge_args, cfg.voxel_shape,
+                                   "column_merge_bf16"),
+                phase_column_merge_bwd(merge_args, cfg.voxel_shape,
+                                       "column_merge_bwd_bf16"),
+                *phase_merge_taps(merge_args, cfg.voxel_shape, "_bf16"),
+                phase_fpn_gather(gather_args, head.eps, head.swapped_bilerp,
+                                 "fpn_gather_bf16")]
+    finally:
+        det.close()
 
 
 # ------------------------------------------------------------- main
@@ -1543,6 +2060,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    import shutil
+
     from mvxnet_makise_tpu_torch.config import Config
     from mvxnet_makise_tpu_torch.data import native
     from mvxnet_makise_tpu_torch.ops import (
@@ -1581,6 +2100,7 @@ def main() -> int:
                                  cfg.compat_swapped_bilerp),
                 *phase_scatter_grid(scatter_args, cfg.voxel_shape)]
         del merge_args, gather_args, scatter_args
+        recs += phase_kernels_bf16(device)
         torch.cuda.empty_cache()
         drive = phase_detector(det, frames, BATCH, serving)
         phase_profile(det, frames, BATCH)
@@ -1589,26 +2109,41 @@ def main() -> int:
     del det
     torch.cuda.empty_cache()
     phase_reference(device)
+    phase_reference_bf16(device)
     # training runs as tools.train runs it, under PyTorch's default cuDNN
     # choice: the detector set cudnn.deterministic process-wide
     torch.backends.cudnn.deterministic = False
     trained = phase_train(device, kernels)
     dense = phase_train_dense3d(device, kernels)
     phase_train_reference(device)
-    kitti = phase_kitti(kernels)
+    kitti, work, root, ids = phase_kitti(kernels)
+    try:
+        val_ids = ids[KITTI_TRAIN:]
+        fused = phase_full_fusion(device, kernels, work, root, val_ids)
+        lidar = phase_lidar_only(device, kernels, work, root, val_ids)
+        phase_shipped_configs(device, kernels, work)
+    finally:
+        shutil.rmtree(work)    # the tree and every phase's checkpoints
 
     cm, pm = ("mvxnet_makise_tpu_torch/csrc/column_merge.cu",
               "mvxnet_makise_tpu/ops/pallas_column_merge.py")
     sg = "mvxnet_makise_tpu_torch/csrc/scatter_grid.cu"
-    # name: (source, TPU kernel replaced, run whose launches count)
+    ga = "mvxnet_makise_tpu_torch/csrc/fpn_gather.cu"
+    # name: (source, TPU kernel replaced, run whose launches count); the
+    # bfloat16 variants' main path is full_fusion's tools.train
     table = {
         "column_merge": (cm, f"{pm}:469", "serve", drive),
         "column_merge_bwd": (cm, f"{pm}:494", "train", trained),
         "merge_taps": (cm, f"{pm}:202", None, None),
         "merge_taps_bwd": (cm, f"{pm}:229", "train", trained),
-        "fpn_gather": ("mvxnet_makise_tpu_torch/csrc/fpn_gather.cu",
-                       "mvxnet_makise_tpu/ops/pallas_gather.py:162",
+        "fpn_gather": (ga, "mvxnet_makise_tpu/ops/pallas_gather.py:162",
                        "serve", drive),
+        "column_merge_bf16": (cm, f"{pm}:469", "full_fusion", fused),
+        "column_merge_bwd_bf16": (cm, f"{pm}:494", "full_fusion", fused),
+        "merge_taps_bf16": (cm, f"{pm}:202", None, None),
+        "merge_taps_bwd_bf16": (cm, f"{pm}:229", "full_fusion", fused),
+        "fpn_gather_bf16": (ga, "mvxnet_makise_tpu/ops/pallas_gather.py:162",
+                            "full_fusion", fused),
         "scatter_grid": (sg, "mvxnet_makise_tpu/ops/pallas_scatter.py:80",
                          "train_dense3d", dense),
         "scatter_grid_bwd": (sg, "mvxnet_makise_tpu/models/voxelnet.py:268",
@@ -1616,13 +2151,19 @@ def main() -> int:
     line = []
     for r in recs:
         source, replaces, path, run = table[r["name"]]
+        # launch counts are the wrapper's, whatever the dtype: the kitti
+        # and lidar_only paths compute in float32
+        wrapper = r["name"].removesuffix("_bf16")
+        f32 = wrapper == r["name"]
         line.append({
             "name": r["name"], "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": run["launches"][r["name"]] if run else 0,
+            "launches": run["launches"][wrapper] if run else 0,
             "path": path or "none: K3 runs on no model path; its phase "
                             "launches it",
-            "kitti_launches": kitti["launches"][r["name"]],
+            "kitti_launches": kitti["launches"][wrapper] if f32 else None,
+            "lidar_only_launches": (lidar["launches"][wrapper] if f32
+                                    else None),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

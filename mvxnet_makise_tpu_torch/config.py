@@ -5,9 +5,11 @@ so a configuration means the same model in both packages.  Some fields
 select formulations that only the JAX package has (``cml_mode="banded"``,
 the ``fusion_mode`` variants other than the default, ``gather_backend``,
 ``fusion_stats``); the port keeps them for interchange and runs the
-function they all compute, or refuses the mode (``models/mvxnet``).  ``use_bf16`` and
-``norm_scope="batch"`` are validated here and refused by the model
-builder (``models/mvxnet.build_model``).
+function they all compute, or refuses the mode (``models/mvxnet``).
+``norm_scope="batch"`` is validated here and refused by the model builder
+(``models/mvxnet.build_model``).  ``use_bf16`` computes in bfloat16 from
+float32 parameters (``train/state.cast_for_compute``); ``remat``
+recomputes the CML in the backward pass (``models/voxelnet_pm``).
 """
 
 from __future__ import annotations
@@ -72,8 +74,7 @@ class Config:
     cls_loss_mode: str = "reference"   # "reference" | "focal"
     focal_gamma: float = 2.0
     focal_alpha: float = 0.25
-    # compute in bfloat16 (not yet in the port: the model builder refuses
-    # it).
+    # compute in bfloat16 from float32 parameters (train/state.py).
     use_bf16: bool = False
     # stateless-norm statistics scope: "sample" = every sample normalized
     # with its own statistics (the reference's batch-1 semantics);
@@ -115,6 +116,8 @@ class Config:
     rpn_extra: Tuple[int, int, int] = (3, 5, 5)
     rpn_deconv_channels: int = 256
 
+    # recompute the CML in the backward pass instead of keeping its
+    # activations (torch.utils.checkpoint).
     remat: bool = False
 
     # image-branch dataflow; the port implements "pm" (fully point-major).

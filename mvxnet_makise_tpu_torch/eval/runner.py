@@ -2,6 +2,9 @@
 (port of ``mvxnet_makise_tpu/eval/runner.py``).
 
 Shared by ``tools.evaluate`` and the training loop's periodic validation.
+The model is the fused detector or, with ``with_images=False``, the
+LiDAR-only one; under ``cfg.use_bf16`` it runs on bfloat16 copies of its
+parameters, cast once per call (``train/state.cast_for_compute``).
 """
 
 from __future__ import annotations
@@ -22,13 +25,15 @@ from mvxnet_makise_tpu_torch.eval.ap import average_precision_3d
 from mvxnet_makise_tpu_torch.eval.decode import decode_predictions
 from mvxnet_makise_tpu_torch.ops.assign import create_anchors
 from mvxnet_makise_tpu_torch.serve import FrameDetections
-from mvxnet_makise_tpu_torch.train.step import frames_to_batch, model_inputs
+from mvxnet_makise_tpu_torch.train.state import cast_for_compute
+from mvxnet_makise_tpu_torch.train.step import forward, frames_to_batch
 
 
 @torch.no_grad()
 def detect_for_eval(cfg: Config, frames: Sequence[KittiFrame],
                     model: torch.nn.Module, score_threshold: float = 0.05,
-                    batch_size: int = 4) -> List[FrameDetections]:
+                    batch_size: int = 4, with_images: bool = True
+                    ) -> List[FrameDetections]:
     """Detections of every frame, on the host, as the evaluator sees them.
 
     The model runs in eval mode without gradients on its own device and
@@ -51,6 +56,7 @@ def detect_for_eval(cfg: Config, frames: Sequence[KittiFrame],
         use_full_f32()
         use_deterministic_convolutions()
     model.eval()
+    tensors = cast_for_compute(model, cfg.use_bf16, with_images)
     rng = np.random.default_rng(0)
     out: List[FrameDetections] = []
     try:
@@ -65,7 +71,7 @@ def detect_for_eval(cfg: Config, frames: Sequence[KittiFrame],
             imgs = torch.from_numpy(np.stack([a.image for a in arrays]))
             batch = frames_to_batch(pts.to(dev, dtype), nps.to(dev),
                                     imgs.to(dev, dtype), cfg)
-            score, reg = model(*model_inputs(batch))
+            score, reg = forward(model, batch, cfg, with_images, tensors)
             for s, r in zip(score[:real], reg[:real]):
                 d = decode_predictions(s.float(), r.float(), anchors,
                                        score_threshold=score_threshold)
@@ -82,8 +88,8 @@ def detect_for_eval(cfg: Config, frames: Sequence[KittiFrame],
 
 def run_eval(cfg: Config, frames: Sequence[KittiFrame],
              model: torch.nn.Module, score_threshold: float = 0.05,
-             batch_size: int = 4, iou_threshold: Optional[float] = None
-             ) -> Dict[str, Dict[str, dict]]:
+             batch_size: int = 4, iou_threshold: Optional[float] = None,
+             with_images: bool = True) -> Dict[str, Dict[str, dict]]:
     """AP of ``model`` on ``frames``: {class: {"all", "easy", "moderate",
     "hard": average_precision_3d's dict}}.
 
@@ -93,7 +99,7 @@ def run_eval(cfg: Config, frames: Sequence[KittiFrame],
     scores sit below it.  The IoU threshold is KITTI's per class (Car 0.7,
     others 0.5) unless ``iou_threshold`` is given."""
     detections = detect_for_eval(cfg, frames, model, score_threshold,
-                                 batch_size)
+                                 batch_size, with_images)
     n_cls = cfg.num_classes
     dets = {c: [] for c in range(n_cls)}
     gts = {c: [] for c in range(n_cls)}

@@ -6,15 +6,19 @@ K4).  Pointwise layers run over the voxel-sorted point
 list, per-voxel max-pooling is a segment max (``scatter_reduce`` amax),
 and the empty sample slots of each voxel — all holding the same row —
 enter the statistics and the max in closed form with multiplicity
-``T - count_v`` (``blocks.DenseReluNormVirtualWeighted``).
+``T - count_v`` (``blocks.DenseReluNormVirtualWeighted``).  ``remat``
+recomputes the CML in the backward pass instead of keeping its
+activations (``nn.remat`` in JAX, ``torch.utils.checkpoint`` here).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mvxnet_makise_tpu_torch.models.blocks import (
     DenseReluNormVirtualWeighted,
@@ -146,9 +150,11 @@ class VoxelNetBranchPM(nn.Module):
                  anchors_per_loc: int = 2, box_dim: int = 7,
                  eps: float = 1e-6, samples_per_voxel: int = 35,
                  rpn_trunk: Tuple = REFERENCE_RPN_TRUNK,
-                 cml_mode: str = "column", scatter_backend: str = "auto"):
+                 cml_mode: str = "column", scatter_backend: str = "auto",
+                 remat: bool = False):
         super().__init__()
         self.samples_per_voxel = samples_per_voxel
+        self.remat = remat
         self.svfe = PointSVFE(in_features, eps)
         self.fcn = DenseReluNormVirtualWeighted(128, 128, eps)
         if cml_mode == "column":
@@ -163,6 +169,7 @@ class VoxelNetBranchPM(nn.Module):
         else:
             raise ValueError(f"unknown cml_mode {cml_mode!r}")
         self.rpn = RPN(64 * 2, anchors_per_loc, box_dim, eps, rpn_trunk)
+        self._cml_tensors = [n for n, _ in self.cml.named_parameters()]
 
     def voxel_features(self, points, kept, seg, counts, vmask, z0=None):
         """Per-voxel 128-channel features (B, V, 128), dead voxels 0."""
@@ -174,6 +181,23 @@ class VoxelNetBranchPM(nn.Module):
         h, hz = self.fcn(x, kept, z, nv, vmask)
         return _voxel_max(h, hz, seg, kept, nv, vmask)
 
+    def run_cml(self, vfeat: torch.Tensor, coords: torch.Tensor,
+                vmask: torch.Tensor) -> torch.Tensor:
+        """The CML; under ``remat`` with gradients on, checkpointed: its
+        activations are recomputed in the backward pass.  The recompute
+        runs with the tensors the CML holds now, read here: under
+        ``torch.func.functional_call`` those are the tensors handed to the
+        call, which has put the module's own back by the time the backward
+        runs."""
+        if not (self.remat and torch.is_grad_enabled()):
+            return self.cml(vfeat, coords, vmask)
+        tensors = {n: functools.reduce(getattr, n.split("."), self.cml)
+                   for n in self._cml_tensors}
+        return checkpoint(
+            lambda *args: torch.func.functional_call(self.cml, tensors,
+                                                     args),
+            vfeat, coords, vmask, use_reentrant=False)
+
     def forward(self, points: torch.Tensor, kept: torch.Tensor,
                 seg: torch.Tensor, counts: torch.Tensor,
                 coords: torch.Tensor, vmask: torch.Tensor,
@@ -182,7 +206,7 @@ class VoxelNetBranchPM(nn.Module):
         (B, P); counts: (B, V); coords: (B, V, 3); vmask: (B, V); z0:
         (B, V, C_in) empty-slot input rows (None = zeros)."""
         vfeat = self.voxel_features(points, kept, seg, counts, vmask, z0)
-        y = self.cml(vfeat, coords, vmask)          # (B, C, D, nx, ny)
+        y = self.run_cml(vfeat, coords, vmask)      # (B, C, D, nx, ny)
         B, C, D, H, W = y.shape
         # (C, D) flattening order into channels, as the reference
         # reshapes NCDHW -> N, C*D, H, W

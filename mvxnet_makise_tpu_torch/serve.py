@@ -3,8 +3,12 @@
 Port of ``mvxnet_makise_tpu/serve.py``'s ``Detector``.  The device path
 per batch is voxelize -> image branch (ResNet50-FPN, K2 gather, fusion
 MLP) -> point-major LiDAR branch (K1 column merge in the CML) -> RPN ->
-decode -> rotated NMS.  Host work per frame is the C++
-crop+project+shuffle+pad (``data/native.assemble_frame``).
+decode -> rotated NMS (the LiDAR-only detector, ``with_images=False``,
+skips the image branch).  Host work per frame is the C++
+crop+project+shuffle+pad (``data/native.assemble_frame``).  Under
+``cfg.use_bf16`` the model runs on bfloat16 copies of its parameters,
+cast once when the detector is made (JAX's serving casts them once too);
+the points stay float32.
 
 PyTorch compiles nothing per batch size, so no request is padded to a
 pooled batch size; :meth:`Detector.warm` builds the CUDA kernels and runs
@@ -36,10 +40,11 @@ from mvxnet_makise_tpu_torch.eval.decode import (
     Detections,
     decode_predictions,
 )
-from mvxnet_makise_tpu_torch.models.mvxnet import MVXNetPM, build_model
+from mvxnet_makise_tpu_torch.models.mvxnet import build_model
 from mvxnet_makise_tpu_torch.ops.assign import create_anchors
 from mvxnet_makise_tpu_torch.train import checkpoint as ckpt
-from mvxnet_makise_tpu_torch.train.step import frames_to_batch, model_inputs
+from mvxnet_makise_tpu_torch.train.state import cast_for_compute
+from mvxnet_makise_tpu_torch.train.step import forward, frames_to_batch
 
 
 class FrameDetections(NamedTuple):
@@ -59,15 +64,21 @@ class Detector:
     without which the same frames served twice on the card give different
     detections."""
 
-    def __init__(self, cfg: Config, model: MVXNetPM,
+    def __init__(self, cfg: Config, model: torch.nn.Module,
+                 with_images: bool = True,
                  score_threshold: float = 0.3,
                  nms_iou_threshold: float = 0.1,
                  pre_max_size: int = 256,
                  post_max_size: int = 64):
         self.cfg = cfg
         self.model = model.eval()
+        self.with_images = with_images
         self.device = next(model.parameters()).device
+        # the masters' dtype: the points and images arrive in it
         self.dtype = parameter_dtype(model)
+        with torch.no_grad():
+            self.tensors = cast_for_compute(model, cfg.use_bf16,
+                                            with_images)
         use_full_f32()
         use_deterministic_convolutions()
         self.anchors = torch.from_numpy(create_anchors(
@@ -85,9 +96,11 @@ class Detector:
                checkpoint_epoch: Optional[int] = None,
                state_dict: Optional[Mapping[str, torch.Tensor]] = None,
                seed: int = 0, device: DeviceLike = None,
-               **kw) -> "Detector":
+               with_images: bool = True, **kw) -> "Detector":
         """A detector on ``device`` (default: the CUDA card) with the
-        weights of ``state_dict`` (an ``MVXNetPM`` state dict) when given;
+        weights of ``state_dict`` (an ``MVXNetPM`` state dict, or the
+        LiDAR-only ``VoxelNetBranchPM``'s with ``with_images=False``) when
+        given;
         else those of epoch ``checkpoint_epoch``'s checkpoint in
         ``cfg.checkpoint_dir`` (``train/checkpoint``), the latest epoch
         there when ``checkpoint_epoch`` is None; else (0, or no
@@ -96,12 +109,12 @@ class Detector:
             checkpoint_epoch = ckpt.latest_epoch(cfg.checkpoint_dir)
         restore = state_dict is not None or bool(checkpoint_epoch)
         model = build_model(cfg, seed=None if restore else seed,
-                            device=device)
+                            device=device, with_images=with_images)
         if state_dict is not None:
             model.load_state_dict(state_dict, strict=True)
         elif checkpoint_epoch:
             ckpt.restore_model(cfg.checkpoint_dir, checkpoint_epoch, model)
-        return cls(cfg, model, **kw)
+        return cls(cfg, model, with_images, **kw)
 
     def close(self) -> None:
         """Stop the host-feed thread pool."""
@@ -116,12 +129,7 @@ class Detector:
         """Detections (on the device) for one assembled batch:
         points (B, P, 6), num_points (B,), images (B, H, W, 3), numpy or
         tensors."""
-        dev = self.device
-        pts = torch.as_tensor(points).to(dev, self.dtype)
-        nums = torch.as_tensor(num_points).to(dev)
-        imgs = torch.as_tensor(images).to(dev, self.dtype)
-        batch = frames_to_batch(pts, nums, imgs, self.cfg)
-        score, reg = self.model(*model_inputs(batch))
+        score, reg = self.maps(points, num_points, images)
         return [decode_predictions(
             s.float(), r.float(), self.anchors,
             score_threshold=self.score_threshold,
@@ -129,6 +137,20 @@ class Detector:
             pre_max_size=self.pre_max_size,
             post_max_size=self.post_max_size)
             for s, r in zip(score, reg)]
+
+    @torch.no_grad()
+    def maps(self, points, num_points, images):
+        """The model's (score, reg) maps, in its compute dtype, for one
+        assembled batch.  The points keep the masters' dtype (float32
+        under ``use_bf16``): bfloat16 coordinates would move points
+        between voxels."""
+        dev = self.device
+        pts = torch.as_tensor(points).to(dev, self.dtype)
+        nums = torch.as_tensor(num_points).to(dev)
+        imgs = torch.as_tensor(images).to(dev, self.dtype)
+        batch = frames_to_batch(pts, nums, imgs, self.cfg)
+        return forward(self.model, batch, self.cfg, self.with_images,
+                       self.tensors)
 
     # -- host API -------------------------------------------------------
 

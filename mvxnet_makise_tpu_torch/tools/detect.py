@@ -2,13 +2,15 @@
 
     python -m mvxnet_makise_tpu_torch.tools.detect <dataroot> -o OUTDIR
         [-r EPOCH] [--config FILE] [--split val] [--batch 8] [--limit N]
-        [--score-threshold 0.3] [--image-min-side S] [--device cuda|cpu]
+        [--score-threshold 0.3] [--image-min-side S] [--lidar-only]
+        [--device cuda|cpu]
 
 Port of ``mvxnet_makise_tpu/tools/detect.py``: restores a checkpoint into
 ``serve.Detector`` (the latest epoch by default), streams a split through
 it in batches, and writes one file per frame, one line per detection in
-the format the KITTI devkit reads (:func:`kitti_result_line`).  Runs on
-the CUDA card unless ``--device cpu``.
+the format the KITTI devkit reads (:func:`kitti_result_line`).
+``--lidar-only`` serves the LiDAR-only detector from frames loaded without
+their images.  Runs on the CUDA card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -60,8 +62,11 @@ def main(argv=None) -> int:
     p.add_argument("--image-min-side", type=float, default=None,
                    help="detection-transform resolution (default: the "
                         "config's)")
+    p.add_argument("--lidar-only", action="store_true",
+                   help="the LiDAR-only detector")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
+    with_images = not args.lidar_only
 
     from mvxnet_makise_tpu_torch.config import load_config
     from mvxnet_makise_tpu_torch.data.kitti import load_dataset
@@ -70,12 +75,13 @@ def main(argv=None) -> int:
     cfg = load_config(args.config, data_root=args.dataroot)
     if args.image_min_side is not None:
         cfg = cfg.replace(image_min_side=args.image_min_side)
-    frames = load_dataset(cfg.data_root, args.split, cfg, limit=args.limit)
+    frames = load_dataset(cfg.data_root, args.split, cfg,
+                          load_images=with_images, limit=args.limit)
     if not frames:
         p.error(f"no frames for split '{args.split}' under {cfg.data_root}")
 
     det = Detector.create(cfg, checkpoint_epoch=args.epoch,
-                          device=args.device,
+                          device=args.device, with_images=with_images,
                           score_threshold=args.score_threshold)
     try:
         det.warm((args.batch,))

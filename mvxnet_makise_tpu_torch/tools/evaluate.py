@@ -2,13 +2,14 @@
 
     python -m mvxnet_makise_tpu_torch.tools.evaluate <dataroot> [-r EPOCH]
         [--config FILE] [--limit N] [--synthetic N] [--score-threshold T]
-        [--device cuda|cpu]
+        [--lidar-only] [--device cuda|cpu]
 
 Port of ``mvxnet_makise_tpu/tools/evaluate.py``: restores epoch ``-r``'s
 model from ``cfg.checkpoint_dir`` (the latest epoch there by default;
 random weights from seed 0 without a checkpoint) and prints one line per
-class and difficulty bucket (``eval/runner.run_eval``).  Runs on the CUDA
-card unless ``--device cpu``.
+class and difficulty bucket (``eval/runner.run_eval``).  ``--lidar-only``
+evaluates the LiDAR-only detector on frames loaded without their images.
+Runs on the CUDA card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -32,8 +33,11 @@ def main(argv=None) -> int:
     p.add_argument("--score-threshold", type=float, default=0.05,
                    help="decode threshold for AP (low: AP needs the "
                         "whole score ranking; 0.3 is a serving choice)")
+    p.add_argument("--lidar-only", action="store_true",
+                   help="the LiDAR-only detector")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
+    with_images = not args.lidar_only
 
     from mvxnet_makise_tpu_torch.config import load_config
     from mvxnet_makise_tpu_torch.data.kitti import KittiFrame, load_dataset
@@ -46,7 +50,8 @@ def main(argv=None) -> int:
     epoch = args.epoch
     if epoch is None:
         epoch = ckpt.latest_epoch(cfg.checkpoint_dir)
-    model = build_model(cfg, seed=None if epoch else 0, device=args.device)
+    model = build_model(cfg, seed=None if epoch else 0, device=args.device,
+                        with_images=with_images)
     if epoch:
         ckpt.restore_model(cfg.checkpoint_dir, epoch, model)
         print(f"restored epoch {epoch}")
@@ -62,9 +67,11 @@ def main(argv=None) -> int:
                                      image=image, calib=calib,
                                      boxes={"Car": boxes}))
     else:
-        frames = load_dataset(cfg.data_root, "val", cfg, limit=args.limit)
+        frames = load_dataset(cfg.data_root, "val", cfg,
+                              load_images=with_images, limit=args.limit)
 
-    res = run_eval(cfg, frames, model, score_threshold=args.score_threshold)
+    res = run_eval(cfg, frames, model, score_threshold=args.score_threshold,
+                   with_images=with_images)
     for cname, buckets in res.items():
         for bname, r in buckets.items():
             print(f"{cname} {bname}: AP={r['ap']:.4f} "

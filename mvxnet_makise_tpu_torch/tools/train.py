@@ -3,7 +3,7 @@
     python -m mvxnet_makise_tpu_torch.tools.train <dataroot> [-n EPOCHS]
         [-r RESUME] [--config FILE] [--batch-size B] [--limit N]
         [--no-augment] [--eval-every N] [--eval-limit N] [--keep-last K]
-        [--max-seconds S] [--device cuda|cpu]
+        [--max-seconds S] [--bf16] [--lidar-only] [--device cuda|cpu]
     python -m mvxnet_makise_tpu_torch.tools.train --synthetic N [...]
 
 Port of ``mvxnet_makise_tpu/tools/train.py``.  From a KITTI tree it trains
@@ -11,10 +11,12 @@ on the train split, with the GT-paste augmentation when
 ``training/gtdatabase`` exists (``tools.create_gtdatabase``) unless
 ``--no-augment``, and with ``--eval-every N`` prints the val split's AP
 every N epochs.  ``--synthetic N`` trains on N synthetic frames instead
-(held-out synthetic frames for ``--eval-every``).  Runs on the CUDA card
-unless ``--device cpu``.  The JAX CLI's ``--lidar-only``, ``--bf16`` and
-``--image-weights`` are not in the port yet (ROADMAP queue 1, item 9) and
-are refused.
+(held-out synthetic frames for ``--eval-every``).  ``--bf16`` computes in
+bfloat16 (``use_bf16``, as a config may also say); ``--lidar-only`` trains
+the VoxelNet branch without the image head, from frames loaded without
+their images.  Runs on the CUDA card unless ``--device cpu``.  The JAX
+CLI's ``--image-weights`` is not in the port yet (ROADMAP queue 1) and is
+refused.
 """
 
 from __future__ import annotations
@@ -51,18 +53,17 @@ def main(argv=None) -> int:
                         "this wall-clock budget is spent")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
-    # the JAX CLI's options that the port does not have yet: refused
-    not_yet = {"lidar_only": "the LiDAR-only branch",
-               "bf16": "bfloat16 compute",
-               "image_weights": "torchvision's extractor weights"}
-    p.add_argument("--lidar-only", action="store_true", help="not yet")
-    p.add_argument("--bf16", action="store_true", help="not yet")
-    p.add_argument("--image-weights", default=None, help="not yet")
+    p.add_argument("--bf16", action="store_true",
+                   help="compute in bfloat16 (use_bf16)")
+    p.add_argument("--lidar-only", action="store_true",
+                   help="train the VoxelNet branch without the image head")
+    p.add_argument("--image-weights", default=None,
+                   help="not in the port yet: refused")
     args = p.parse_args(argv)
-    for name, what in not_yet.items():
-        if getattr(args, name):
-            p.error(f"--{name.replace('_', '-')} ({what}) is not in the "
-                    f"port yet (ROADMAP queue 1, item 9)")
+    if args.image_weights:
+        p.error("--image-weights (torchvision's extractor weights) is not "
+                "in the port yet (ROADMAP queue 1, item 9: "
+                "--image-weights)")
 
     from mvxnet_makise_tpu_torch.config import load_config
     from mvxnet_makise_tpu_torch.data.kitti import KittiFrame
@@ -75,7 +76,10 @@ def main(argv=None) -> int:
         overrides["batch_size"] = args.batch_size
     if args.keep_last is not None:
         overrides["checkpoint_keep_last"] = args.keep_last
+    if args.bf16:
+        overrides["use_bf16"] = True
     cfg = load_config(args.config, **overrides)
+    with_images = not args.lidar_only
 
     gt_db, eval_frames = None, None
     if args.synthetic > 0:
@@ -106,9 +110,11 @@ def main(argv=None) -> int:
             p.error("dataroot missing (or use --synthetic N)")
         from mvxnet_makise_tpu_torch.data.kitti import load_dataset
 
-        frames = load_dataset(cfg.data_root, "train", cfg, limit=args.limit)
+        frames = load_dataset(cfg.data_root, "train", cfg,
+                              load_images=with_images, limit=args.limit)
         if args.eval_every:
             eval_frames = load_dataset(cfg.data_root, "val", cfg,
+                                       load_images=with_images,
                                        limit=args.eval_limit)
         if not args.no_augment:
             from mvxnet_makise_tpu_torch.data.gt_database import (
@@ -125,7 +131,8 @@ def main(argv=None) -> int:
 
     train(cfg, frames, gt_db=gt_db, resume_epoch=args.resume,
           eval_frames=eval_frames, eval_every=max(args.eval_every, 1),
-          time_budget_s=args.max_seconds, device=args.device)
+          time_budget_s=args.max_seconds, device=args.device,
+          with_images=with_images)
     return 0
 
 

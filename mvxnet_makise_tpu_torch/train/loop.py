@@ -32,6 +32,7 @@ from typing import (
 
 import numpy as np
 import torch
+from torch import nn
 
 from mvxnet_makise_tpu_torch.config import Config
 from mvxnet_makise_tpu_torch.data.augment import (
@@ -46,7 +47,7 @@ from mvxnet_makise_tpu_torch.device import (
 )
 from mvxnet_makise_tpu_torch.eval import runner
 from mvxnet_makise_tpu_torch.geometry.calib import lidar_to_image
-from mvxnet_makise_tpu_torch.models.mvxnet import MVXNetPM, build_model
+from mvxnet_makise_tpu_torch.models.mvxnet import build_model
 from mvxnet_makise_tpu_torch.ops.assign import create_anchors
 from mvxnet_makise_tpu_torch.train import checkpoint as ckpt
 from mvxnet_makise_tpu_torch.train.state import TrainState
@@ -112,20 +113,24 @@ def preprocess_train_frame(frame: KittiFrame, cfg: Config,
 
 
 def build_model_and_state(cfg: Config, device: DeviceLike = None,
-                          seed: int = 0) -> Tuple[MVXNetPM, TrainState]:
-    """The detector ``cfg`` describes, with random weights from ``seed``,
-    in train mode on ``device`` (default: the CUDA card), and a fresh
+                          seed: int = 0, with_images: bool = True
+                          ) -> Tuple[nn.Module, TrainState]:
+    """The detector ``cfg`` describes (the LiDAR-only branch with
+    ``with_images=False``), with random weights from ``seed``, in train
+    mode on ``device`` (default: the CUDA card), and a fresh
     :class:`TrainState`."""
-    model = build_model(cfg, seed=seed, device=device).train()
+    model = build_model(cfg, seed=seed, device=device,
+                        with_images=with_images).train()
     return model, TrainState.create(cfg, model)
 
 
-def make_full_train_step(cfg: Config, anchors: torch.Tensor):
+def make_full_train_step(cfg: Config, anchors: torch.Tensor,
+                         with_images: bool = True):
     """Voxelize + assign + forward + loss + backward + update:
     ``step(state, points, num_points, images, gt_boxes, gt_mask,
     gt_classes, perm)`` on tensors of the model's device; returns the
     metrics."""
-    inner = make_train_step(cfg, anchors)
+    inner = make_train_step(cfg, anchors, with_images)
 
     def step(state: TrainState, points, num_points, images, gt_boxes,
              gt_mask, gt_classes, perm):
@@ -188,9 +193,13 @@ def train(cfg: Config,
           eval_every: int = 1,
           time_budget_s: Optional[float] = None,
           device: DeviceLike = None,
-          seed: int = 0) -> TrainState:
+          seed: int = 0,
+          with_images: bool = True) -> TrainState:
     """Train on in-RAM frames for ``num_epochs`` (default
     ``cfg.num_epochs``) after ``resume_epoch``; returns the final state.
+    ``with_images=False`` trains the LiDAR-only detector (frames may then
+    come without images); ``cfg.use_bf16`` computes in bfloat16 from
+    float32 masters (``train/state``).
 
     ``gt_db`` (``data/gt_database.load_database``) turns on the paste
     augmentation.  Host prep runs on ``workers`` threads (default
@@ -215,11 +224,12 @@ def train(cfg: Config,
         use_full_f32()
     anchors = torch.from_numpy(create_anchors(
         cfg.feature_map_shape, cfg.velo_range, cfg.anchor_sizes)).to(dev)
-    _, state = build_model_and_state(cfg, device=dev, seed=seed)
+    _, state = build_model_and_state(cfg, device=dev, seed=seed,
+                                     with_images=with_images)
     if resume_epoch > 0:
         ckpt.restore_checkpoint(cfg.checkpoint_dir, resume_epoch, state)
 
-    step = make_full_train_step(cfg, anchors)
+    step = make_full_train_step(cfg, anchors, with_images)
     timer = PhaseTimer()
     shuffle = torch.Generator().manual_seed(cfg.seed)
     frames = list(frames)
@@ -280,7 +290,8 @@ def train(cfg: Config,
         if eval_frames and (epoch + 1 - resume_epoch) % eval_every == 0:
             with timer.phase("eval"):
                 res = runner.run_eval(cfg, list(eval_frames), state.model,
-                                      batch_size=min(B, 4))
+                                      batch_size=min(B, 4),
+                                      with_images=with_images)
             for cname, buckets in res.items():
                 r = buckets["all"]
                 print(f"epoch {epoch + 1} val {cname}: "

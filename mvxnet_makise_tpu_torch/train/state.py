@@ -1,4 +1,5 @@
-"""Train state: the frozen image extractor, AdamW and its schedule.
+"""Train state: the frozen image extractor, AdamW and its schedule, and the
+bfloat16 compute policy.
 
 Port of ``mvxnet_makise_tpu/train/state.py``.  The reference trains with
 AdamW over the parameters that require gradients; the frozen Faster R-CNN
@@ -7,13 +8,21 @@ optimizer entirely: torch's AdamW would still decay a parameter whose
 gradient is a zero tensor, while optax's ``set_to_zero`` leaves it as it
 is.  AdamW's defaults are optax's (``weight_decay=1e-4``, betas (0.9,
 0.999), ``eps=cfg.eps``), not torch's (``weight_decay=1e-2``).
+
+Under ``use_bf16`` the module keeps its float32 parameters (the masters,
+which AdamW updates and checkpoints hold) and the forward runs on bfloat16
+copies of them (:func:`cast_for_compute`, ``train/step.forward``), as JAX
+casts the parameter tree for each step: every op then runs in the dtype of
+its operands, as under JAX, and gradients flow back through the casts into
+the masters.  ``torch.autocast`` would compute another function (it keeps
+norms, reductions and losses in float32).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, List
+from typing import Callable, Dict, List, Optional
 
 import torch
 from torch import nn
@@ -91,3 +100,25 @@ class TrainState:
             group["lr"] = lr
         self.optimizer.step()
         self.step += 1
+
+
+def cast_for_compute(model: nn.Module, use_bf16: bool,
+                     with_images: bool = True
+                     ) -> Optional[Dict[str, torch.Tensor]]:
+    """The tensors the forward runs with (JAX's ``cast_for_compute``), for
+    ``torch.func.functional_call``: None (the module's own) unless
+    ``use_bf16``; then every floating parameter and buffer rounded to
+    bfloat16, differentiable back into the float32 masters.
+
+    They come in the dtype JAX's promotion gives the forward: bfloat16 for
+    the fused model, whose images are cast; float32 for the LiDAR-only
+    branch (``with_images=False``), whose point features stay float32 and
+    promote the bfloat16 parameters, so it computes in float32 with
+    bfloat16-rounded weights."""
+    if not use_bf16:
+        return None
+    dtype = torch.bfloat16 if with_images else torch.float32
+    tensors = {**dict(model.named_parameters()),
+               **dict(model.named_buffers())}
+    return {name: t.to(torch.bfloat16).to(dtype) if t.is_floating_point()
+            else t for name, t in tensors.items()}

@@ -1,13 +1,16 @@
 """The device batch, and the train and eval steps over it.
 
-Port of ``Batch``, ``frames_to_batch``, the point-major branch of
-``_model_inputs``, ``_assign_batch``, ``compute_loss``,
-``make_train_step`` and ``make_eval_step`` from
+Port of ``Batch``, ``frames_to_batch``, ``cast_batch_for_compute``, the
+point-major branches of ``_model_inputs``, ``_assign_batch``,
+``compute_loss``, ``make_train_step`` and ``make_eval_step`` from
 ``mvxnet_makise_tpu/train/step.py``.  The JAX package's
 ``train/state.make_apply`` runs the model once per sample; here every
 norm keeps the batch axis instead (``models/blocks.py``).  The step runs
 eagerly: assignment, forward, loss, backward (K1's and K4's backward
-kernels on the card) and the AdamW update.
+kernels on the card) and the AdamW update.  ``with_images=False`` is the
+LiDAR-only detector (``models/mvxnet.build_model``); under ``use_bf16``
+the forward runs on bfloat16 copies of the parameters
+(``train/state.cast_for_compute``).
 """
 
 from __future__ import annotations
@@ -18,13 +21,14 @@ import torch
 from torch import nn
 
 from mvxnet_makise_tpu_torch.config import Config
+from mvxnet_makise_tpu_torch.models.voxelnet_pm import point_lidar_features
 from mvxnet_makise_tpu_torch.ops.assign import (
     AnchorTargets,
     assign_anchor_targets,
 )
 from mvxnet_makise_tpu_torch.ops.voxelize import voxelize
 from mvxnet_makise_tpu_torch.train.loss import voxel_loss
-from mvxnet_makise_tpu_torch.train.state import TrainState
+from mvxnet_makise_tpu_torch.train.state import TrainState, cast_for_compute
 
 
 class Batch(NamedTuple):
@@ -62,10 +66,50 @@ def frames_to_batch(points: torch.Tensor, num_points: torch.Tensor,
                  gt_classes=gt_classes)
 
 
-def model_inputs(batch: Batch):
-    """Arguments of ``MVXNetPM.forward`` in order."""
+def cast_batch_for_compute(batch: Batch, use_bf16: bool) -> Batch:
+    """Under ``use_bf16`` the images in bfloat16; the points, which carry
+    geometry (bfloat16 is +-0.25 m at 70 m and +-8 px at column 1000),
+    stay float32: the model casts what it derives from them after the
+    geometry is consumed."""
+    if not use_bf16:
+        return batch
+    return batch._replace(images=batch.images.to(torch.bfloat16))
+
+
+def model_inputs(batch: Batch) -> tuple:
+    """Arguments of ``MVXNetPM``'s forward, in order."""
     return (batch.sorted_points, batch.sorted_kept, batch.sorted_seg,
             batch.counts, batch.coords, batch.vmask, batch.images)
+
+
+def lidar_inputs(batch: Batch, samples_per_voxel: int) -> tuple:
+    """Arguments of the LiDAR-only ``VoxelNetBranchPM``'s forward, in
+    order: its 7-channel point features are computed here from the
+    points, in their dtype, as JAX's ``_model_inputs`` does."""
+    pf7 = point_lidar_features(batch.sorted_points, batch.sorted_seg,
+                               batch.sorted_kept, batch.counts,
+                               samples_per_voxel)
+    return (pf7, batch.sorted_kept, batch.sorted_seg, batch.counts,
+            batch.coords, batch.vmask)
+
+
+def forward(model: nn.Module, batch: Batch, cfg: Config, with_images: bool,
+            tensors: Optional[Dict[str, torch.Tensor]] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The model's (score, reg) maps for a batch, in the compute dtype:
+    the fused model, or with ``with_images=False`` the LiDAR-only one.
+    Under ``use_bf16`` the model runs on ``tensors``, the copies of
+    :func:`train.state.cast_for_compute` (cast here when None; a caller
+    that runs many batches on the same weights casts once and passes
+    them)."""
+    if tensors is None:
+        tensors = cast_for_compute(model, cfg.use_bf16, with_images)
+    batch = cast_batch_for_compute(batch, cfg.use_bf16)
+    inputs = (model_inputs(batch) if with_images
+              else lidar_inputs(batch, cfg.samples_per_voxel))
+    if tensors is None:
+        return model(*inputs)
+    return torch.func.functional_call(model, tensors, inputs)
 
 
 def _assign_batch(batch: Batch, cfg: Config) -> AnchorTargets:
@@ -86,12 +130,12 @@ def _assign_batch(batch: Batch, cfg: Config) -> AnchorTargets:
 
 
 def compute_loss(model: nn.Module, batch: Batch, targets: AnchorTargets,
-                 anchors: torch.Tensor, cfg: Config
+                 anchors: torch.Tensor, cfg: Config, with_images: bool = True
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean over frames of :func:`voxel_loss`, and the mean of each
     metric.  The maps enter the loss in at least float32, as JAX casts
     them to float32; a float64 model keeps float64."""
-    score, reg = model(*model_inputs(batch))
+    score, reg = forward(model, batch, cfg, with_images)
     dtype = torch.promote_types(score.dtype, torch.float32)
     score, reg = score.to(dtype), reg.to(dtype)
     anchors = anchors.to(dtype)
@@ -110,10 +154,12 @@ def compute_loss(model: nn.Module, batch: Batch, targets: AnchorTargets,
              for k in metrics[0]})
 
 
-def make_train_step(cfg: Config, anchors: torch.Tensor
+def make_train_step(cfg: Config, anchors: torch.Tensor,
+                    with_images: bool = True
                     ) -> Callable[[TrainState, Batch], Dict[str, torch.Tensor]]:
-    """The train step: assign, forward, loss, backward, AdamW update.
-    ``anchors``: (H, W, A, 7) on the model's device.
+    """The train step: assign, forward, loss, backward, AdamW update (of
+    the float32 masters under ``use_bf16``).  ``anchors``: (H, W, A, 7)
+    on the model's device.
 
     ``step(state, batch)`` updates ``state`` in place and returns the
     metrics.  A non-finite loss leaves the parameters, the optimizer state
@@ -125,7 +171,7 @@ def make_train_step(cfg: Config, anchors: torch.Tensor
         targets = _assign_batch(batch, cfg)
         state.optimizer.zero_grad(set_to_none=True)
         loss, metrics = compute_loss(state.model, batch, targets, anchors,
-                                     cfg)
+                                     cfg, with_images)
         loss.backward()
         finite = bool(torch.isfinite(loss))
         if finite:
@@ -136,14 +182,14 @@ def make_train_step(cfg: Config, anchors: torch.Tensor
     return train_step
 
 
-def make_eval_step(cfg: Config
+def make_eval_step(cfg: Config, with_images: bool = True
                    ) -> Callable[[nn.Module, Batch],
                                  Tuple[torch.Tensor, torch.Tensor]]:
     """Forward-only step returning float32 (score, reg) maps."""
 
     @torch.no_grad()
     def eval_step(model: nn.Module, batch: Batch):
-        score, reg = model(*model_inputs(batch))
+        score, reg = forward(model, batch, cfg, with_images)
         return score.float(), reg.float()
 
     return eval_step

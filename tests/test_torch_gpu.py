@@ -10,7 +10,11 @@ that has only PyTorch:
 Tolerances: K1 and K3 sum the same taps in the same order as their plain
 versions (1e-5 on float32, or exact where a test says so; bfloat16 outputs
 round to 8 bits, 2e-2); K2
-rounds its four weighted taps in another order (1e-5).  K1's backward
+rounds its four weighted taps in another order (1e-5).  K2 in bfloat16
+sums in float32 and rounds once, where its plain version rounds each of
+its 11 products and sums to bfloat16 (each rounding at most 2^-9 of the
+largest level value): 2^-5 of that value; against the float32 sum of
+its own formula, one bfloat16 step.  K1's backward
 forms the pre-ReLU cotangent with its adds in another order than
 autograd (1e-5) and sums the bias gradient over every cell in another
 order (1e-4 of the largest value).  K4 and K3's backward copy values:
@@ -348,6 +352,146 @@ def test_gather_kernel_refuses_what_it_does_not_take(cuda):
         gather.fpn_gather([torch.from_numpy(f).to(cuda) for f in feats],
                           torch.from_numpy(rc).to(cuda),
                           torch.from_numpy(ok).to(cuda), IMG)
+
+
+@pytest.mark.parametrize("shapes,C", [
+    (((16, 40), (8, 20), (4, 10)), 256),
+    (((17, 41), (9, 21), (5, 11)), 136),
+    (((7, 3), (13, 29), (2, 1)), 8)])
+def test_gather_kernel_bf16_matches_plain(cuda, shapes, C):
+    """K2 in bfloat16 at odd widths and levels that do not halve: one
+    launch, bfloat16 out, invalid points 0, within 2^-5 of the largest
+    level value of the plain bfloat16 version, and within one bfloat16
+    step of the float32 sum of its own formula (plus 2^-20 of the largest
+    level value for float32 summation order)."""
+    rng = np.random.default_rng(C)
+    B, P = 2, 300
+    feats = [torch.from_numpy(rng.normal(size=(B, h, w, C)) * 4).to(
+        cuda, torch.bfloat16) for h, w in shapes]
+    rc = np.stack([rng.uniform(0, IMG[0], (B, P)),
+                   rng.uniform(0, IMG[1], (B, P))], -1).astype(np.float32)
+    rc[0, :3] = IMG
+    ok = torch.from_numpy(rng.random((B, P)) < 0.8).to(cuda)
+    rc = torch.from_numpy(rc).to(cuda)
+    before = gather.KERNEL.launches
+    got = gather.fpn_gather(feats, rc, ok, IMG)
+    assert gather.KERNEL.launches == before + 1
+    want = gather.fpn_gather_plain(feats, rc, ok, IMG)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert got.shape == (B, P, 3 * C)
+    scale = max(float(f.float().abs().max()) for f in feats)
+    assert float((got.float() - want.float()).abs().max()) <= scale / 32
+    summed = gather.fpn_gather_plain(feats, rc, ok, IMG,
+                                     accumulate=torch.float32)
+    assert _bf16_steps(got, summed, scale * 2 ** -20) <= 1
+    assert not got[~ok].any()
+
+
+def _bf16_steps(got, want, slack):
+    """Largest |got - want| beyond ``slack``, in bfloat16 steps at
+    max(|got|, |want|) of each value."""
+    g, w = got.float(), want.float()
+    _, e = torch.frexp(torch.maximum(g.abs(), w.abs()))
+    step = torch.ldexp(torch.ones_like(g), e - 8)
+    return float(((g - w).abs() - slack).clamp(min=0).div(step).max())
+
+
+def test_gather_kernel_bf16_refuses_what_it_does_not_take(cuda):
+    """bfloat16 levels need C % 8 == 0 and 16-byte alignment; mixed
+    dtypes are refused."""
+    feats = [torch.zeros((1, 4, 6, C), dtype=torch.bfloat16, device=cuda)
+             for C in (8, 8, 12)]
+    rc = torch.zeros((1, 5, 2), device=cuda)
+    ok = torch.ones((1, 5), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="C % 8"):
+        gather.fpn_gather(feats, rc, ok, IMG)
+    shifted = torch.zeros(1 + 4 * 6 * 8, dtype=torch.bfloat16,
+                          device=cuda)[1:].reshape(1, 4, 6, 8)
+    with pytest.raises(ValueError, match="16-byte"):
+        gather.fpn_gather([shifted, feats[0], feats[1]], rc, ok, IMG)
+    with pytest.raises(ValueError):
+        gather.fpn_gather([feats[0], feats[1].float(), feats[1]], rc, ok,
+                          IMG)
+
+
+def test_bf16_model_on_card_matches_cpu(cuda):
+    """The fused model in bfloat16 (float32 masters, bfloat16 copies) on
+    the card: bfloat16 maps, K1 and K2 in bfloat16, and the card's maps at
+    most 2x as far from a float64 CPU run of the same weights as the
+    CPU's own bfloat16 maps (floor 1e-2 of the largest value)."""
+    cfg = TINY.replace(use_bf16=True)
+    weights = build_model(cfg, seed=3, device="cpu").state_dict()
+    rng = np.random.default_rng(1)
+    frames = [synthetic_frame(rng, cfg, num_cars=2, num_points=1200)[:3]
+              for _ in range(2)]
+    maps = {}
+    for name, dev, dtype, bf16 in (
+            ("card", cuda, torch.float32, True),
+            ("cpu_bf16", torch.device("cpu"), torch.float32, True),
+            ("cpu64", torch.device("cpu"), torch.float64, False)):
+        model = build_model(cfg, seed=None, device=dev)
+        model.load_state_dict(weights)
+        det = Detector(cfg.replace(use_bf16=bf16), model.to(dtype))
+        pts, nums, imgs = det.assemble(frames)
+        column_merge.KERNEL.launches = gather.KERNEL.launches = 0
+        maps[name] = [m.cpu() for m in det.maps(pts, nums, imgs)]
+        launches = (column_merge.KERNEL.launches, gather.KERNEL.launches)
+        assert launches == ((1, 1) if dev.type == "cuda" else (0, 0))
+        det.close()
+    assert maps["card"][0].dtype == torch.bfloat16
+    for g, c, w in zip(maps["card"], maps["cpu_bf16"], maps["cpu64"]):
+        assert _dist(g.double(), w) <= max(2 * _dist(c.double(), w), 1e-2)
+
+
+def test_remat_on_card_same_gradients_lower_peak(cuda):
+    """The LiDAR-only model at the full default grid, batch 2: with remat
+    CML conv1 runs twice per step (K1 launches twice), the peak device
+    memory is lower, and every gradient sits within 10x the run-to-run
+    distance of two steps without remat (atomics in PyTorch's index
+    backward ops), floor 1e-5 relative."""
+    cfg = Config(batch_size=2)
+    rng = np.random.default_rng(0)
+    arrays = []
+    for i in range(2):
+        pts, calib, image, boxes = synthetic_frame(rng, cfg)
+        arrays.append(preprocess_train_frame(
+            KittiFrame(f"f{i}", pts, None, calib, {"Car": boxes}), cfg,
+            None, np.random.default_rng(i)))
+    pts, nums, imgs, gts, gms, gcs = collate(arrays, cuda)
+    gen = torch.Generator().manual_seed(0)
+    perm = torch.stack([torch.randperm(cfg.max_points, generator=gen)
+                        for _ in range(2)]).to(cuda)
+    batch = frames_to_batch(pts, nums, imgs, cfg, gt_boxes=gts,
+                            gt_mask=gms, gt_classes=gcs, perm=perm)
+    anchors = torch.from_numpy(create_anchors(
+        cfg.feature_map_shape, cfg.velo_range, cfg.anchor_sizes)).to(cuda)
+    weights = build_model(cfg, seed=2, device="cpu",
+                          with_images=False).state_dict()
+    runs = []
+    for remat in (False, False, True):
+        c = cfg.replace(remat=remat)
+        model = build_model(c, seed=None, device=cuda, with_images=False)
+        model.load_state_dict(weights)
+        state = TrainState.create(c, model.train())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        column_merge.KERNEL.launches = 0
+        make_train_step(c, anchors, with_images=False)(state, batch)
+        torch.cuda.synchronize()
+        runs.append((torch.cuda.max_memory_allocated(),
+                     column_merge.KERNEL.launches,
+                     {n: p.grad.double() for n, p in
+                      model.named_parameters()}))
+        del model, state
+    (peak0, k0, g0), (_, _, g1), (peak_r, k_r, g_r) = runs
+    assert (k0, k_r) == (1, 2)
+    assert peak_r < peak0
+    for n in g0:
+        norm = float(g0[n].norm())
+        noise = float((g1[n] - g0[n]).norm()) / norm
+        assert float((g_r[n] - g0[n]).norm()) / norm <= max(10 * noise,
+                                                             1e-5), n
 
 
 def _maps(det, arrays):

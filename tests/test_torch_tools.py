@@ -157,18 +157,29 @@ def test_tools_chain_on_the_cpu(tree, tmp_path, capsys):
             assert np.isfinite(np.asarray(parts[1:], np.float64)).all()
 
 
-def test_train_cli_synthetic_eval_and_refusals(tmp_path, monkeypatch,
-                                               capsys):
+@pytest.mark.parametrize("option", [[], ["--lidar-only"], ["--bf16"],
+                                    ["--image-weights", "w.pt"]],
+                         ids=["fused", "lidar-only", "bf16",
+                              "image-weights"])
+def test_train_cli_synthetic_eval_and_refusals(option, tmp_path,
+                                               monkeypatch, capsys):
+    """``--synthetic`` with the val AP, fused, LiDAR-only or in bfloat16;
+    ``--image-weights`` is refused."""
     monkeypatch.chdir(tmp_path)
     cfg_path = _yaml(tmp_path / "tiny.yaml")
-    assert train_cli.main(["--synthetic", "2", "-n", "1", "--eval-every",
-                           "1", "--config", cfg_path, "--device",
-                           "cpu"]) == 0
-    assert "epoch 1 val Car: AP=" in capsys.readouterr().out
-    for args in (["--lidar-only"], ["--bf16"], ["--image-weights", "w.pt"]):
+    args = ["--synthetic", "2", "-n", "1", "--eval-every", "1", "--config",
+            cfg_path, "--device", "cpu", *option]
+    if "--image-weights" in option:
         with pytest.raises(SystemExit):
-            train_cli.main(["--synthetic", "2", *args])
+            train_cli.main(args)
         assert "ROADMAP queue 1, item 9" in capsys.readouterr().err
+        return
+    assert train_cli.main(args) == 0
+    assert "epoch 1 val Car: AP=" in capsys.readouterr().out
+    saved = torch.load("checkpoints/epoch1", weights_only=True)["model"]
+    assert any(k.startswith("head.") for k in saved) == (
+        "--lidar-only" not in option)
+    assert all(v.dtype == torch.float32 for v in saved.values())
 
 
 def test_detector_create_restores_checkpoints(tmp_path):
