@@ -84,8 +84,11 @@ K3, K3's backward and K2, again in bfloat16 (``*_bf16`` records) on the
 arguments ``configs/full_fusion.yaml``'s Detector hands them (batch 4,
 32768 points), caught inside its forward on the bfloat16 copies it
 computes with; K2 in bfloat16 is also held to the float32 sum of its own
-formula, one bfloat16 step per value.  Then a ``kernels`` line, the card's name
-and power limit, and last
+formula, one bfloat16 step per value.  K1's records take a seeded nonzero
+bias and hold the output bit-equal to the float32 sum rounded once
+(``merge_reference``); K1's backward records also time its first pass
+(pre and dbias) and K3's gather of pre apart, each beside its own bound.
+Then a ``kernels`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase exits nonzero before
 that line.  Without a CUDA device the script exits nonzero and prints no
 result.  JAX is never imported.
@@ -118,12 +121,14 @@ F32_FLOP_PER_S = 67e12
 #   563k cells of a batch in another order (dbias).
 #   K3 is K1's kernel without the epilogue: the same adds in the same
 #   order.  K3's backward, K4 and K4's backward copy values: exact.
-#   In bfloat16: K1 adds the bias to its float32 tap sum, the plain version
-#   to that sum rounded to bfloat16 (JAX's reference does the same), so an
-#   output may move by one bfloat16 step (2^-8 relative; none with a zero
-#   bias, as at initialization), and the row statistics, summed from the
-#   kernel's unrounded tap sums and the plain version's rounded ones, by
-#   at most that step too (measured 1.4e-3 on an H100).  K1's backward is held to
+#   In bfloat16: K1 adds the bias to its float32 tap sum and rounds once,
+#   as the Pallas kernel does; it is held to the plain version's
+#   accumulate=float32 option, which does the same (the default rounds the
+#   sum before the bias, as JAX's XLA reference does): the output exactly,
+#   the row statistics as float32 sums in another order (1e-5).  Both K1
+#   records take a bias drawn from a seeded generator (the model's is zero
+#   at initialization, which would hide a tap added twice or in another
+#   order under the ReLU's constant).  K1's backward is held to
 #   _merge_fused_bwd's formula on the kernel's own output (a cell near 0
 #   may flip the ReLU between kernel and plain version): dy may round one
 #   bfloat16 step apart (measured 0), dbias is a float32 sum in another
@@ -142,7 +147,7 @@ TOL = {"column_merge": {"out": 1e-6, "stats": 1e-5},
        "scatter_grid": {"grid": 0.0},
        "scatter_grid_bwd": {"d": 0.0},
        "fpn_gather": {"out": 1e-5},
-       "column_merge_bf16": {"out": 2 ** -8, "stats": 2 ** -8},
+       "column_merge_bf16": {"out": 0.0, "stats": 1e-5},
        "column_merge_bwd_bf16": {"dy": 2 ** -8, "dbias": 1e-5},
        "merge_taps_bf16": {"out": 0.0},
        "merge_taps_bwd_bf16": {"dy": 0.0},
@@ -329,27 +334,54 @@ def bound_of(n_bytes: float, n_ops: float) -> tuple:
         else "operations"
 
 
-def phase_column_merge(merge_args, grid_shape, name="column_merge"):
+def seeded_bias(y, seed: int = 2):
+    """A nonzero float32 bias for K1's lanes, from a seeded generator (the
+    model's conv1 bias is zero at initialization)."""
+    import torch
+
+    gen = torch.Generator(device=y.device).manual_seed(seed)
+    return torch.randn(y.shape[-1], generator=gen, device=y.device) * 0.1
+
+
+def merge_reference(y, col_cy, bounds, bias, grid_shape):
+    """K1's plain version as the kernel computes it: in bfloat16 the float32
+    tap sum plus the bias, rounded once (``accumulate=torch.float32``); in
+    float32 the default, the same function."""
     import torch
 
     from mvxnet_makise_tpu_torch.ops import column_merge as cm
 
-    y, col_cy, bounds, bias = merge_args
+    acc = torch.float32 if y.dtype == torch.bfloat16 else None
+    return cm.merge_taps_fused_plain(y, col_cy, bounds, bias, grid_shape,
+                                     accumulate=acc)
+
+
+def phase_column_merge(merge_args, grid_shape, name="column_merge"):
+    """K1 on the path's y, col_cy and bounds with a seeded nonzero bias,
+    against ``merge_reference``; the same bits twice."""
+    import torch
+
+    from mvxnet_makise_tpu_torch.ops import column_merge as cm
+
+    y, col_cy, bounds, _ = merge_args
+    bias = seeded_bias(y)
     nx, ny = grid_shape[0], grid_shape[1]
     B, V, _, R = y.shape
     launches0 = cm.KERNEL.launches
     out, stats = cm.merge_taps_fused(y, col_cy, bounds, bias, grid_shape)
     check(cm.KERNEL.launches == launches0 + 1, "K1 wrapper did not launch")
+    launch = launch_config(cm.KERNEL)
     # the row statistics are summed across threads and blocks in a fixed
     # order: a second call gives the same bits
     out2, stats2 = cm.merge_taps_fused(y, col_cy, bounds, bias, grid_shape)
-    want_out, want_stats = cm.merge_taps_fused_plain(y, col_cy, bounds,
-                                                     bias, grid_shape)
+    want_out, want_stats = merge_reference(y, col_cy, bounds, bias,
+                                           grid_shape)
     torch.cuda.synchronize()
     same_twice = torch.equal(out, out2) and torch.equal(stats, stats2)
     del out2, stats2
     err_out, rel_out = rel_err(out, want_out)
     err_stats, rel_stats = rel_err(stats, want_stats)
+    del want_out, want_stats
     tol = TOL[name]
     ok = rel_out <= tol["out"] and rel_stats <= tol["stats"] and same_twice
 
@@ -357,8 +389,7 @@ def phase_column_merge(merge_args, grid_shape, name="column_merge"):
     rows = y.reshape(-1, R)
     times = timings(
         lambda: cm.merge_taps_fused(y, col_cy, bounds, bias, grid_shape),
-        lambda: cm.merge_taps_fused_plain(y, col_cy, bounds, bias,
-                                          grid_shape),
+        lambda: merge_reference(y, col_cy, bounds, bias, grid_shape),
         lambda: buf.index_add_(0, dest, rows))
 
     es = y.element_size()
@@ -373,7 +404,9 @@ def phase_column_merge(merge_args, grid_shape, name="column_merge"):
     rec = {"phase": "kernel", "name": name, "ok": ok,
            "shapes": {"y": list(y.shape), "dtype": str(y.dtype),
                       "out": list(out.shape), "live_columns": live},
-           "launch": launch_config(cm.KERNEL),
+           "launch": launch, "bias": "seeded nonzero (seeded_bias)",
+           "reference": "merge_taps_fused_plain(accumulate=float32)"
+           if y.dtype == torch.bfloat16 else "merge_taps_fused_plain",
            "max_abs_err": err_out, "max_abs_err_stats": err_stats,
            "rel_err": rel_out, "rel_err_stats": rel_stats,
            "bit_identical_twice": same_twice,
@@ -388,11 +421,13 @@ def phase_column_merge(merge_args, grid_shape, name="column_merge"):
 
 
 def phase_column_merge_bwd(merge_args, grid_shape, name="column_merge_bwd"):
-    """K1's backward: the pre/dbias kernel pair, then K3's backward
-    gather of pre, against autograd through K1's plain version on the
-    same out, g_out and g_stats (float32), or, in bfloat16, against
+    """K1's backward: the first pass (pre and dbias kernels), then K3's
+    backward gather of pre, against autograd through K1's plain version
+    on the same out, g_out and g_stats (float32), or, in bfloat16, against
     ``_merge_fused_bwd``'s formula on the kernel's own output with dy by
-    autograd through the plain merge (TOL)."""
+    autograd through the plain merge (TOL).  The pair and each of its two
+    parts are timed, each beside its own bound; the first pass must give
+    the same bits twice."""
     import torch
 
     from mvxnet_makise_tpu_torch.ops import column_merge as cm
@@ -411,8 +446,11 @@ def phase_column_merge_bwd(merge_args, grid_shape, name="column_merge_bwd"):
     check((cm.BWD_KERNEL.launches, cm.TAPS_BWD_KERNEL.launches)
           == (before[0] + 1, before[1] + 1),
           "K1's backward wrapper did not launch its kernels")
+    launch = launch_config(cm.BWD_KERNEL, cm.TAPS_BWD_KERNEL)
     dy2, dbias2 = cm.merge_taps_fused_backward(out, g_out, g_stats, col_cy,
                                                bounds, V, grid_shape)
+    pre, pre_dbias = cm.merge_fused_pre(out, g_out, g_stats)
+    pre2, pre_dbias2 = cm.merge_fused_pre(out, g_out, g_stats)
     yp = y.detach().requires_grad_()
     bp = bias.detach().requires_grad_()
     if y.dtype == torch.float32:
@@ -422,27 +460,36 @@ def phase_column_merge_bwd(merge_args, grid_shape, name="column_merge_bwd"):
                                                               g_stats)
     else:
         o = out.float()
-        pre = ((g_out.float() + g_stats[:, :, 0, None].to(y.dtype).float()
-                + 2 * o * g_stats[:, :, 1, None].to(y.dtype).float())
-               * (o > 0)).to(y.dtype)
+        want_pre = ((g_out.float()
+                     + g_stats[:, :, 0, None].to(y.dtype).float()
+                     + 2 * o * g_stats[:, :, 1, None].to(y.dtype).float())
+                    * (o > 0)).to(y.dtype)
         want_out = cm.merge_taps_plain(yp, col_cy, bounds, grid_shape)
-        want_stats = pre.float().sum((0, 1, 2))
-        outs, ins, grads = (want_out,), (yp,), (pre,)
+        want_stats = want_pre.float().sum((0, 1, 2))
+        outs, ins, grads = (want_out,), (yp,), (want_pre,)
     want = torch.autograd.grad(outs, ins, grads, retain_graph=True)
     want_dy = want[0]
     want_dbias = want[1] if y.dtype == torch.float32 else want_stats
     torch.cuda.synchronize()
     same_twice = torch.equal(dy, dy2) and torch.equal(dbias, dbias2)
+    pre_same_twice = (torch.equal(pre, pre2)
+                      and torch.equal(pre_dbias, pre_dbias2)
+                      and torch.equal(pre_dbias, dbias))
+    del dy2, dbias2, pre2, pre_dbias2
     err_dy, rel_dy = rel_err(dy, want_dy)
     err_db, rel_db = rel_err(dbias, want_dbias)
     tol = TOL[name]
-    ok = rel_dy <= tol["dy"] and rel_db <= tol["dbias"] and same_twice
+    ok = (rel_dy <= tol["dy"] and rel_db <= tol["dbias"] and same_twice
+          and pre_same_twice)
 
     times = timings(
         lambda: cm.merge_taps_fused_backward(out, g_out, g_stats, col_cy,
                                              bounds, V, grid_shape),
         lambda: torch.autograd.grad(outs, ins, grads, retain_graph=True))
     del outs, ins, grads, want, want_out, want_stats, want_dy, want_dbias
+    first_ms = time_ms(lambda: cm.merge_fused_pre(out, g_out, g_stats))
+    gather_ms = time_ms(lambda: cm.merge_taps_backward(pre, col_cy, bounds,
+                                                       V, grid_shape))
 
     es = y.element_size()
     cells = B * nx * ny * R
@@ -452,18 +499,41 @@ def phase_column_merge_bwd(merge_args, grid_shape, name="column_merge_bwd"):
     # per cell: two adds, two multiplies, the ReLU test, the dbias add
     n_ops = 6 * cells
     bound_ms, bound_by = bound_of(n_bytes, n_ops)
+    # the first pass alone: out and g_out read, g_stats read, pre and its
+    # dbias partials written, dbias written
+    _, segments = cm.backward_launch_facts(out, ny)
+    first_bytes = (3 * cells * es + g_stats.numel() * 4
+                   + B * nx * segments * R * 4 + R * 4)
+    first_bound = bound_of(first_bytes, n_ops)
+    # the gather alone (K3's backward on pre): dy written, the cells live
+    # columns touch read
+    dest = merge_dest(col_cy, bounds, grid_shape).reshape(-1)
+    touched = int(torch.unique(dest[dest < B * nx * ny]).numel())
+    gather_bytes = (B * V * 9 * R * es + touched * R * es
+                    + col_cy.numel() * 4 + bounds.numel() * 4)
+    gather_bound = bound_of(gather_bytes, 0)
     rec = {"phase": "kernel", "name": name, "ok": ok,
            "shapes": {"out": list(out.shape), "dy": list(dy.shape),
                       "dtype": str(out.dtype)},
-           "launch": launch_config(cm.BWD_KERNEL, cm.TAPS_BWD_KERNEL),
+           "launch": launch,
            "max_abs_err": err_dy, "max_abs_err_dbias": err_db,
            "rel_err": rel_dy, "rel_err_dbias": rel_db,
            "bit_identical_twice": same_twice, "tolerance": tol, **times,
            "library_call": None, "bytes": n_bytes, "ops": n_ops,
-           "bound_ms": bound_ms, "bound_by": bound_by}
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "first_pass": {"ms": first_ms, "bytes": first_bytes,
+                          "bound_ms": first_bound[0],
+                          "bound_by": first_bound[1],
+                          "segments_per_row": segments,
+                          "bit_identical_twice": pre_same_twice},
+           "gather": {"ms": gather_ms, "bytes": gather_bytes,
+                      "bound_ms": gather_bound[0],
+                      "bound_by": gather_bound[1],
+                      "touched_cells": touched}}
     emit(rec)
     check(ok, f"K1's backward disagrees with autograd of its plain version "
-              f"or is not deterministic: {rel_dy}, {rel_db}, {same_twice}")
+              f"or is not deterministic: {rel_dy}, {rel_db}, {same_twice}, "
+              f"{pre_same_twice}")
     return rec
 
 
@@ -2002,12 +2072,12 @@ def phase_reference_bf16(device):
               f"{errs}")
 
 
-def phase_kernels_bf16(device) -> list:
-    """K1, K1's backward, K3, K3's backward and K2 in bfloat16, on the
-    arguments the bfloat16 path hands them: ``configs/full_fusion.yaml``'s
-    Detector (random weights from a seed) on frames of that config (batch
-    4, 32768 points), caught inside its forward on the bfloat16 copies it
-    computes with (``kernel_inputs``)."""
+def full_fusion_kernel_inputs(device):
+    """The arguments ``configs/full_fusion.yaml``'s Detector (random
+    weights, seed 0) hands K1 and K2 on frames of that config (batch 4,
+    32768 points), caught inside its forward on the bfloat16 copies it
+    computes with (``kernel_inputs``).  Returns (cfg, merge_args,
+    gather_args, eps, swapped bilinear weights)."""
     import tempfile
 
     import torch
@@ -2025,20 +2095,27 @@ def phase_kernels_bf16(device) -> list:
         check(merge_args[0].dtype == gather_args[0][0].dtype
               == torch.bfloat16, "full_fusion.yaml's kernel arguments are "
               "not bfloat16")
-        emit({"phase": "kernel_inputs_bf16",
-              "config": "configs/full_fusion.yaml as written, random "
-                        "weights (seed 0), batch 4 synthetic frames",
-              "y": list(merge_args[0].shape),
-              "points": list(gather_args[1].shape)})
-        return [phase_column_merge(merge_args, cfg.voxel_shape,
-                                   "column_merge_bf16"),
-                phase_column_merge_bwd(merge_args, cfg.voxel_shape,
-                                       "column_merge_bwd_bf16"),
-                *phase_merge_taps(merge_args, cfg.voxel_shape, "_bf16"),
-                phase_fpn_gather(gather_args, head.eps, head.swapped_bilerp,
-                                 "fpn_gather_bf16")]
+        return cfg, merge_args, gather_args, head.eps, head.swapped_bilerp
     finally:
         det.close()
+
+
+def phase_kernels_bf16(device) -> list:
+    """K1, K1's backward, K3, K3's backward and K2 in bfloat16, on the
+    arguments the bfloat16 path hands them (``full_fusion_kernel_inputs``)."""
+    cfg, merge_args, gather_args, eps, swapped = \
+        full_fusion_kernel_inputs(device)
+    emit({"phase": "kernel_inputs_bf16",
+          "config": "configs/full_fusion.yaml as written, random "
+                    "weights (seed 0), batch 4 synthetic frames",
+          "y": list(merge_args[0].shape),
+          "points": list(gather_args[1].shape)})
+    return [phase_column_merge(merge_args, cfg.voxel_shape,
+                               "column_merge_bf16"),
+            phase_column_merge_bwd(merge_args, cfg.voxel_shape,
+                                   "column_merge_bwd_bf16"),
+            *phase_merge_taps(merge_args, cfg.voxel_shape, "_bf16"),
+            phase_fpn_gather(gather_args, eps, swapped, "fpn_gather_bf16")]
 
 
 # ------------------------------------------------------------- main
@@ -2166,7 +2243,12 @@ def main() -> int:
                                     else None),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **({"first_pass_ms": r["first_pass"]["ms"],
+                "first_pass_bound_ms": r["first_pass"]["bound_ms"],
+                "gather_ms": r["gather"]["ms"],
+                "gather_bound_ms": r["gather"]["bound_ms"]}
+               if "first_pass" in r else {})})
     emit({"kernels": line})
     print(gpu_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

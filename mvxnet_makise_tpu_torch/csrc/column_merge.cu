@@ -42,34 +42,57 @@
 // * Vector width.  A thread moves 16 bytes at a time (a float4, or 8
 //   bfloat16) when R * sizeof(T) is a multiple of 16 and the tensors are
 //   16-byte aligned, else one element (the scalar path); the launcher
-//   picks.  Loads take the read-only path (__ldg); stores are streaming
-//   (__stcs): this kernel never reads its output back.
+//   picks.  Loads take the read-only path (__ldg); the forward's stores
+//   are streaming (__stcs): it never reads its output back.
 // * Forward (K1; K3 is the same kernel with the epilogue compiled out):
 //   one block per (tile of ny/4 cells, output row ox, frame).  The block
 //   first writes the slot ids of the three contributing cx rows into a
-//   shared-memory map of 3 x (tile + 2) entries (-1 = no column), so a cell
-//   finds its <= 9 taps without a search.  Threads are (tx, ty): tx owns
-//   one vector of lanes, ty a group of cells (cells ty, ty + G, ...).  A
-//   thread issues all nine tap loads of its cell before it adds any (an
-//   absent tap loads nothing and adds 0.0, which leaves a sum that starts
-//   at +0.0 unchanged).  One cell at a time keeps K3 at 32 registers and
-//   K1 at 48, so 6 and 4 blocks of 320 threads fit an SM; on an H100 two
-//   cells per thread took 84-96 registers and made K1 0.75 ms against
-//   0.61.  Each cell sums its taps kh-major, kw-minor from 0.0, then adds
-//   the bias and applies the ReLU: the plain version's order, so K1's and
-//   K3's float32 outputs equal it bit for bit.
+//   shared-memory map of 3 x (tile + 2) entries (-1 = no column), then
+//   turns it into each cell's list of present taps (their rows of y,
+//   kh-major, kw-minor) and its count.  Threads are (tx, ty): tx owns one
+//   vector of lanes, ty a group of cells (cells ty, ty + G, ...).  A cell
+//   loads, widens and adds only its present taps, TAP_BATCH loads in
+//   flight before their adds; a cell with no tap stores the word packed
+//   once per thread (relu(bias), or 0 for K3).  Skipping is exact: the sum
+//   starts at +0.0, is never -0.0, and adding +0.0 leaves it unchanged.
+//   Each cell sums its taps kh-major, kw-minor from 0.0, then adds the
+//   bias and applies the ReLU: the plain version's order, so K1's and K3's
+//   float32 outputs equal it bit for bit, and K1's bfloat16 output equals
+//   the float32 sum rounded once.  Timings below are kernel_ab.py's, on an
+//   H100 80GB HBM3 at 700 W, on full_fusion.yaml's arguments (bfloat16)
+//   and the default Config's (float32).  About 92 % of the (cell, tap)
+//   pairs are absent there; the earlier body widened and added all nine
+//   taps of every cell (about 250 instructions per 16-byte bfloat16 word,
+//   84 registers): 0.400 ms against 0.263 now (bound 0.181), float32 0.546
+//   against 0.446.  The launch bound asks MERGE_MIN_BLOCKS blocks per SM,
+//   which holds bfloat16 K1 at 64 registers: without it, 94 registers and
+//   0.305 ms; 4 blocks (48 registers) spill and take 0.490; TAP_BATCH 8
+//   spills (0.494), 2 takes 0.283.  (Earlier, two cells per thread took
+//   84-96 registers and made float32 K1 0.75 ms against 0.61.)
 // * K1's row statistics, in a fixed order without atomics: each thread
 //   sums its cells in order; the G groups' partials meet in shared memory
 //   and are summed in group order into the tile's partial row (scratch,
 //   B x nx x tiles x 2R floats); a second small kernel sums each row's
 //   tile partials in tile order.  The same inputs give the same bits.
 //   (A thread-block cluster per row, summing the tiles through distributed
-//   shared memory, cost 0.12 ms more at the default config: a cluster's
-//   blocks wait for its slowest.)
-// * K1 backward, pass 1: one block per (frame, row ox), threads own lanes
-//   and walk oy, computing pre once per cell and that row's dbias partial.
-//   Pass 2 sums the B*nx partials of each lane in a fixed order (32 row
-//   stripes per lane, then the stripes in order through shared memory).
+//   shared memory, cost 0.12 ms more at the default config on an H100
+//   80GB HBM3 at 700 W: a cluster's blocks wait for its slowest.)
+// * K1 backward, pass 1: a streaming pass over out and g_out.  One block
+//   per (segment of at most PRE_CELLS cells, row ox, frame), threads (tx,
+//   ty) as in the forward: tx a vector of lanes, ty every G-th cell, with
+//   PRE_UNROLL cells' loads in flight before their stores.  Each thread
+//   sums its cells' pre in cell order, the groups meet in shared memory in
+//   group order, and each block writes one dbias partial row (scratch, B x
+//   nx x segments x R floats).  Pass 2 sums each lane's partials in a
+//   fixed order: DBIAS_STRIPES strided stripes, then the stripes in order
+//   through shared memory.  pre's formula is the earlier scalar pass's,
+//   one cell at a time, so pre (and dy) keep its bits.  That pass (a block
+//   per row, a thread per lane walking 400 cells with 2- or 4-byte
+//   accesses) took 0.469 ms in bfloat16 and 0.801 in float32; this one
+//   0.375 and 0.746, at 80 and 64 registers, against its own bytes bound of
+//   0.326 and 0.649 (kernel_ab.py, H100 80GB HBM3 at 700 W).  Capping it at
+//   64 registers spills (0.417); 200 cells and 2 in flight per thread take
+//   0.382, 50 cells 0.379.
 // * K3 backward (and K1's dy): one block per chunk of GATHER_COLS column
 //   slots of a frame.  One thread per column finds the column's cx by
 //   binary search in bounds (once per column) and writes the cotangent
@@ -77,8 +100,8 @@
 //   dead slot).  Threads (tx, ty) then copy the chunk's 9 x GATHER_COLS
 //   rows: tx owns a vector of lanes, ty every G-th row, GATHER_UNROLL loads
 //   in flight before their stores; a missing tap is written as zeros.  (On
-//   an H100, 8 columns and 8 rows in flight ran best of 4-32 columns and
-//   4-16 rows: 0.300 ms against 0.321 with 16 and 4.)
+//   an H100 80GB HBM3 at 700 W, 8 columns and 8 rows in flight ran best of
+//   4-32 columns and 4-16 rows: 0.300 ms against 0.321 with 16 and 4.)
 // No atomics anywhere, so every result is deterministic.  The TPU kernels'
 // lane padding, chunked DMA and one-hot positioning matmuls have no
 // counterpart here.  Accumulation is float32 for float32 and bfloat16.
@@ -93,12 +116,18 @@
 namespace {
 
 constexpr int MERGE_THREADS = 320;   // threads of a forward block, at most
+constexpr int MERGE_MIN_BLOCKS = 3;  // forward blocks an SM must hold
 constexpr int MERGE_TILES = 4;       // blocks (oy tiles) per row
+constexpr int TAP_BATCH = 4;         // tap loads in flight per cell
 constexpr int STATS_THREADS = 256;   // threads of a row-statistics block
+constexpr int PRE_THREADS = 320;     // threads of a backward pass-1 block
+constexpr int PRE_CELLS = 100;       // cells per pass-1 block, at most
+constexpr int PRE_UNROLL = 4;        // cells per thread with loads in flight
+constexpr int DBIAS_LANES = 8;       // lanes of a dbias block
+constexpr int DBIAS_STRIPES = 128;   // row stripes of a dbias block
 constexpr int GATHER_THREADS = 320;  // threads of a backward-gather block
 constexpr int GATHER_COLS = 8;       // column slots per backward block
 constexpr int GATHER_UNROLL = 8;     // rows per thread with loads in flight
-constexpr int LANE_THREADS_MAX = 1024;
 
 // VEC elements of T moved as one word W: 16 bytes, or one element
 template <typename T, int VEC>
@@ -125,13 +154,19 @@ struct Pack<float, 1> {
     static __device__ __forceinline__ W pack(const float* f) { return f[0]; }
 };
 
-// a bfloat16 is the top half of a float32: widening is a shift, narrowing
-// rounds to nearest even as __float2bfloat16 does
+// a bfloat16 is the top half of a float32: widening is a shift (or a
+// mask, for the high half of a pair), narrowing rounds to nearest even as
+// __float2bfloat16 does; a pair narrows in one instruction
 __device__ __forceinline__ float bf16_bits_to_f32(uint32_t h) {
     return __uint_as_float(h << 16);
 }
 __device__ __forceinline__ uint32_t f32_to_bf16_bits(float f) {
     return __bfloat16_as_ushort(__float2bfloat16(f));
+}
+__device__ __forceinline__ uint32_t f32x2_to_bf16x2_bits(float lo,
+                                                         float hi) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&h);
 }
 
 template <>
@@ -141,16 +176,15 @@ struct Pack<__nv_bfloat16, 8> {
         const uint32_t u[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-            f[2 * i] = bf16_bits_to_f32(u[i] & 0xffffu);
-            f[2 * i + 1] = bf16_bits_to_f32(u[i] >> 16);
+            f[2 * i] = bf16_bits_to_f32(u[i]);
+            f[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
         }
     }
     static __device__ __forceinline__ W pack(const float* f) {
         uint32_t u[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
-            u[i] = f32_to_bf16_bits(f[2 * i])
-                   | (f32_to_bf16_bits(f[2 * i + 1]) << 16);
+            u[i] = f32x2_to_bf16x2_bits(f[2 * i], f[2 * i + 1]);
         return make_uint4(u[0], u[1], u[2], u[3]);
     }
 };
@@ -166,14 +200,6 @@ struct Pack<__nv_bfloat16, 1> {
     }
 };
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-    return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-    *p = __float2bfloat16(v);
-}
 // v rounded to T, as a float
 __device__ __forceinline__ float rounded(float v, const float*) { return v; }
 __device__ __forceinline__ float rounded(float v, const __nv_bfloat16*) {
@@ -184,14 +210,21 @@ __host__ __device__ constexpr size_t align16(size_t n) {
     return (n + 15) / 16 * 16;
 }
 
-// Shared memory of the forward: the slot map, then for K1 the groups'
+// Shared memory of the forward: the slot map, each cell's tap count and
+// its <= 9 present taps' rows of y, then for K1 the bias and the groups'
 // statistics partials [2][G][R]
 __host__ __device__ constexpr size_t cmap_bytes(int tile) {
     return align16(3 * (size_t)(tile + 2) * sizeof(int32_t));
 }
+__host__ __device__ constexpr size_t taps_bytes(int tile) {
+    return align16(10 * (size_t)tile * sizeof(int32_t));
+}
+__host__ __device__ constexpr size_t bias_bytes(int R) {
+    return align16((size_t)R * sizeof(float));
+}
 
 template <typename T, bool EPILOGUE, int VEC>
-__global__ void __launch_bounds__(MERGE_THREADS)
+__global__ void __launch_bounds__(MERGE_THREADS, MERGE_MIN_BLOCKS)
 merge_kernel(const T* __restrict__ y, const int32_t* __restrict__ col_cy,
              const int32_t* __restrict__ bounds,
              const float* __restrict__ bias, T* __restrict__ out,
@@ -201,6 +234,12 @@ merge_kernel(const T* __restrict__ y, const int32_t* __restrict__ col_cy,
     using W = typename P::W;
     extern __shared__ __align__(16) unsigned char smem[];
     int32_t* cmap = reinterpret_cast<int32_t*>(smem);
+    int32_t* ntaps = reinterpret_cast<int32_t*>(smem + cmap_bytes(tile));
+    int32_t* taps = ntaps + tile;   // [tile][9]
+    float* bias_s = reinterpret_cast<float*>(
+        smem + cmap_bytes(tile) + taps_bytes(tile));
+    float* part = reinterpret_cast<float*>(
+        smem + cmap_bytes(tile) + taps_bytes(tile) + bias_bytes(R));
     const int width = tile + 2;
     const int oy0 = blockIdx.x * tile;
     const int ox = blockIdx.y;
@@ -210,6 +249,8 @@ merge_kernel(const T* __restrict__ y, const int32_t* __restrict__ col_cy,
     const int nthreads = blockDim.x * blockDim.y;
 
     for (int i = tid; i < 3 * width; i += nthreads) cmap[i] = -1;
+    if (EPILOGUE)
+        for (int i = tid; i < R; i += nthreads) bias_s[i] = __ldg(bias + i);
     __syncthreads();
     const int32_t* bnd = bounds + (size_t)b * (nx + 1);
     const int32_t* cyb = col_cy + (size_t)b * V;
@@ -227,46 +268,76 @@ merge_kernel(const T* __restrict__ y, const int32_t* __restrict__ col_cy,
         }
     }
     __syncthreads();
+    // each cell's present taps, kh-major, kw-minor: row j * 9 + t of y
+    for (int c = tid; c < cells; c += nthreads) {
+        int n = 0;
+#pragma unroll
+        for (int t = 0; t < 9; ++t) {
+            const int j = cmap[(t / 3) * width + c + t % 3];
+            if (j >= 0) taps[c * 9 + n++] = j * 9 + t;
+        }
+        ntaps[c] = n;
+    }
+    __syncthreads();
 
     const int nvec = R / VEC;
     const int G = blockDim.y;
     const W* yb = reinterpret_cast<const W*>(y) + (size_t)b * V * 9 * nvec;
     W* orow = reinterpret_cast<W*>(out)
               + (((size_t)b * nx + ox) * ny + oy0) * nvec;
-    float* part = reinterpret_cast<float*>(smem + cmap_bytes(tile));
     for (int v = threadIdx.x; v < nvec; v += blockDim.x) {
-        float bv[VEC], s1[VEC], s2[VEC];
+        // what a cell without taps emits: relu(0.0 + bias), or 0.0
+        float rb[VEC], s1[VEC], s2[VEC];
 #pragma unroll
         for (int i = 0; i < VEC; ++i) {
-            bv[i] = EPILOGUE ? __ldg(bias + v * VEC + i) : 0.f;
+            rb[i] = EPILOGUE ? fmaxf(0.f + bias_s[v * VEC + i], 0.f) : 0.f;
             s1[i] = s2[i] = 0.f;
         }
+        const W empty = P::pack(rb);
         for (int c = threadIdx.y; c < cells; c += G) {
-            W tap[9];
+            const int n = ntaps[c];
+            W word = empty;
+            if (n == 0) {
+                if (EPILOGUE) {
 #pragma unroll
-            for (int t = 0; t < 9; ++t) {
-                const int j = cmap[(t / 3) * width + c + t % 3];
-                tap[t] = j >= 0
-                    ? __ldg(yb + ((size_t)j * 9 + t) * nvec + v) : W{};
-            }
-            float acc[VEC], f[VEC];
-#pragma unroll
-            for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
-#pragma unroll
-            for (int t = 0; t < 9; ++t) {
-                P::unpack(tap[t], f);
-#pragma unroll
-                for (int i = 0; i < VEC; ++i) acc[i] += f[i];
-            }
-            if (EPILOGUE) {
-#pragma unroll
-                for (int i = 0; i < VEC; ++i) {
-                    acc[i] = fmaxf(acc[i] + bv[i], 0.f);
-                    s1[i] += acc[i];
-                    s2[i] += acc[i] * acc[i];
+                    for (int i = 0; i < VEC; ++i) {
+                        s1[i] += rb[i];
+                        s2[i] += rb[i] * rb[i];
+                    }
                 }
+            } else {
+                const int32_t* tc = taps + c * 9;
+                float acc[VEC];
+#pragma unroll
+                for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
+                for (int k0 = 0; k0 < n; k0 += TAP_BATCH) {
+                    W w[TAP_BATCH];
+#pragma unroll
+                    for (int q = 0; q < TAP_BATCH; ++q)
+                        w[q] = k0 + q < n
+                            ? __ldg(yb + (size_t)tc[k0 + q] * nvec + v)
+                            : W{};
+#pragma unroll
+                    for (int q = 0; q < TAP_BATCH; ++q) {
+                        if (k0 + q < n) {
+                            float f[VEC];
+                            P::unpack(w[q], f);
+#pragma unroll
+                            for (int i = 0; i < VEC; ++i) acc[i] += f[i];
+                        }
+                    }
+                }
+                if (EPILOGUE) {
+#pragma unroll
+                    for (int i = 0; i < VEC; ++i) {
+                        acc[i] = fmaxf(acc[i] + bias_s[v * VEC + i], 0.f);
+                        s1[i] += acc[i];
+                        s2[i] += acc[i] * acc[i];
+                    }
+                }
+                word = P::pack(acc);
             }
-            __stcs(orow + (size_t)c * nvec + v, P::pack(acc));
+            __stcs(orow + (size_t)c * nvec + v, word);
         }
         if (EPILOGUE) {
 #pragma unroll
@@ -307,52 +378,101 @@ merge_stats_kernel(const float* __restrict__ partial,
     stats[i] = s;
 }
 
-// K1 backward, pass 1: pre and one dbias partial per (frame, row, lane)
-template <typename T>
-__global__ void merge_fused_pre_kernel(const T* __restrict__ out,
-                                       const T* __restrict__ g_out,
-                                       const float* __restrict__ g_stats,
-                                       T* __restrict__ pre,
-                                       float* __restrict__ partial,
-                                       int nx, int ny, int R) {
-    const size_t row = (size_t)blockIdx.y * nx + blockIdx.x;
-    const T* orow = out + row * ny * R;
-    const T* grow = g_out + row * ny * R;
-    T* prow = pre + row * ny * R;
+// K1 backward, pass 1: pre, and one dbias partial row per block, a block
+// per (segment of seg cells, row ox, frame).  Shared memory: the groups'
+// partials [G][R].
+template <typename T, int VEC>
+__global__ void __launch_bounds__(PRE_THREADS)
+merge_fused_pre_kernel(const T* __restrict__ out,
+                       const T* __restrict__ g_out,
+                       const float* __restrict__ g_stats,
+                       T* __restrict__ pre, float* __restrict__ partial,
+                       int nx, int ny, int R, int seg) {
+    using P = Pack<T, VEC>;
+    using W = typename P::W;
+    extern __shared__ __align__(16) unsigned char smem[];
+    float* part = reinterpret_cast<float*>(smem);
+    const size_t row = (size_t)blockIdx.z * nx + blockIdx.y;
+    const int oy0 = blockIdx.x * seg;
+    const int cells = max(0, min(seg, ny - oy0));
+    const int nvec = R / VEC;
+    const int G = blockDim.y;
+    const size_t first = (row * ny + oy0) * nvec;
+    const W* orow = reinterpret_cast<const W*>(out) + first;
+    const W* grow = reinterpret_cast<const W*>(g_out) + first;
+    W* prow = reinterpret_cast<W*>(pre) + first;
     const float* gs = g_stats + row * 2 * R;
-    for (int r = threadIdx.x; r < R; r += blockDim.x) {
+    for (int v = threadIdx.x; v < nvec; v += blockDim.x) {
         // the stats cotangents enter in T, as the JAX VJP casts them
-        const float g_sum = rounded(gs[r], out);
-        const float g_sq = rounded(gs[R + r], out);
-        float acc = 0.f;
-        for (int oy = 0; oy < ny; ++oy) {
-            const size_t i = (size_t)oy * R + r;
-            const float o = to_f32(orow[i]);
-            const float h = to_f32(grow[i]) + g_sum + 2.f * o * g_sq;
-            const float p = rounded(o > 0.f ? h : 0.f, out);
-            store(prow + i, p);
-            acc += p;
+        float g_sum[VEC], g_sq[VEC], acc[VEC];
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+            g_sum[i] = rounded(__ldg(gs + v * VEC + i), out);
+            g_sq[i] = rounded(__ldg(gs + R + v * VEC + i), out);
+            acc[i] = 0.f;
         }
-        partial[row * R + r] = acc;
+        for (int c0 = threadIdx.y; c0 < cells; c0 += G * PRE_UNROLL) {
+            W wo[PRE_UNROLL], wg[PRE_UNROLL];
+#pragma unroll
+            for (int k = 0; k < PRE_UNROLL; ++k) {
+                const int c = c0 + k * G;
+                wo[k] = c < cells ? __ldg(orow + (size_t)c * nvec + v) : W{};
+                wg[k] = c < cells ? __ldg(grow + (size_t)c * nvec + v) : W{};
+            }
+#pragma unroll
+            for (int k = 0; k < PRE_UNROLL; ++k) {
+                const int c = c0 + k * G;
+                if (c < cells) {
+                    float o[VEC], g[VEC], h[VEC], p[VEC];
+                    P::unpack(wo[k], o);
+                    P::unpack(wg[k], g);
+#pragma unroll
+                    for (int i = 0; i < VEC; ++i) {
+                        h[i] = g[i] + g_sum[i] + 2.f * o[i] * g_sq[i];
+                        h[i] = o[i] > 0.f ? h[i] : 0.f;
+                    }
+                    // one rounding to T; the sum takes the rounded values
+                    const W w = P::pack(h);
+                    P::unpack(w, p);
+#pragma unroll
+                    for (int i = 0; i < VEC; ++i) acc[i] += p[i];
+                    prow[(size_t)c * nvec + v] = w;
+                }
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < VEC; ++i)
+            part[threadIdx.y * R + v * VEC + i] = acc[i];
+    }
+    __syncthreads();
+    // the block's partial: each lane's G group partials in group order
+    const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+    float* dst = partial + (row * gridDim.x + blockIdx.x) * R;
+    for (int r = tid; r < R; r += blockDim.x * blockDim.y) {
+        float s = 0.f;
+        for (int g = 0; g < G; ++g) s += part[g * R + r];
+        dst[r] = s;
     }
 }
 
 // K1 backward, pass 2: dbias[r] = sum of the n_rows partials of lane r, in
-// a fixed order.  Block (32 lanes, 32 stripes).
-__global__ void merge_fused_dbias_kernel(const float* __restrict__ partial,
-                                         float* __restrict__ dbias,
-                                         int n_rows, int R) {
-    __shared__ float part[32][33];
-    const int r = blockIdx.x * 32 + threadIdx.x;
+// a fixed order: DBIAS_STRIPES row stripes, then the stripes in order.
+__global__ void __launch_bounds__(DBIAS_LANES * DBIAS_STRIPES)
+merge_fused_dbias_kernel(const float* __restrict__ partial,
+                         float* __restrict__ dbias, int n_rows, int R) {
+    __shared__ float part[DBIAS_STRIPES][DBIAS_LANES + 1];
+    const int r = blockIdx.x * DBIAS_LANES + threadIdx.x;
     float acc = 0.f;
-    if (r < R)
-        for (int n = threadIdx.y; n < n_rows; n += 32)
+    if (r < R) {
+#pragma unroll 8
+        for (int n = threadIdx.y; n < n_rows; n += DBIAS_STRIPES)
             acc += partial[(size_t)n * R + r];
+    }
     part[threadIdx.y][threadIdx.x] = acc;
     __syncthreads();
     if (threadIdx.y == 0 && r < R) {
         float s = 0.f;
-        for (int k = 0; k < 32; ++k) s += part[k][threadIdx.x];
+        for (int k = 0; k < DBIAS_STRIPES; ++k) s += part[k][threadIdx.x];
         dbias[r] = s;
     }
 }
@@ -421,16 +541,13 @@ merge_taps_bwd_kernel(const T* __restrict__ g,
     }
 }
 
-int lane_threads(int R) {
-    int threads = ((R + 31) / 32) * 32;
-    return threads > LANE_THREADS_MAX ? LANE_THREADS_MAX : threads;
-}
-
 bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 
 // elements per word: 16 bytes when every row and tensor allows it
-int vector_width(int R, int esize, const void* a, const void* b) {
+int vector_width(int R, int esize, const void* a, const void* b,
+                 const void* c = nullptr) {
     return (R * esize) % 16 == 0 && aligned16(a) && aligned16(b)
+            && aligned16(c)
         ? 16 / esize : 1;
 }
 
@@ -448,9 +565,28 @@ MergeShape merge_shape(bool fused, int vec, int B, int nx, int ny, int R) {
     const int tx = nvec < MERGE_THREADS ? nvec : MERGE_THREADS;
     int ty = MERGE_THREADS / tx;
     if (ty > tile) ty = tile;
-    size_t smem = cmap_bytes(tile);
-    if (fused) smem += 2 * (size_t)ty * R * sizeof(float);
+    size_t smem = cmap_bytes(tile) + taps_bytes(tile);
+    if (fused) smem += bias_bytes(R) + 2 * (size_t)ty * R * sizeof(float);
     return {dim3(tiles, nx, B), dim3(tx, ty), tile, smem};
+}
+
+// Launch shape of K1 backward's pass 1: grid (segments, nx, B), block
+// (tx, ty), seg cells per segment
+struct PreShape {
+    dim3 grid, block;
+    int seg;
+    size_t smem;
+};
+
+PreShape pre_shape(int vec, int B, int nx, int ny, int R) {
+    const int segs = (ny + PRE_CELLS - 1) / PRE_CELLS;
+    const int seg = segs ? (ny + segs - 1) / segs : 0;
+    const int nvec = R / vec;
+    const int tx = nvec < PRE_THREADS ? nvec : PRE_THREADS;
+    int ty = PRE_THREADS / tx;
+    if (ty > seg) ty = seg;
+    return {dim3(segs, nx, B), dim3(tx, ty), seg,
+            (size_t)ty * R * sizeof(float)};
 }
 
 template <typename T, bool EPILOGUE, int VEC>
@@ -498,26 +634,48 @@ int launch_merge(const void* y, const void* col_cy, const void* bounds,
                                            (cudaStream_t)stream);
 }
 
+template <typename T, int VEC>
+int launch_fused_bwd_vec(const void* out, const void* g_out,
+                         const void* g_stats, void* pre, void* partial,
+                         void* dbias, int B, int nx, int ny, int R,
+                         cudaStream_t stream) {
+    const auto kernel = merge_fused_pre_kernel<T, VEC>;
+    const PreShape s = pre_shape(VEC, B, nx, ny, R);
+    if (s.smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)s.smem);
+        if (e != cudaSuccess) return (int)e;
+    }
+    kernel<<<s.grid, s.block, s.smem, stream>>>(
+        (const T*)out, (const T*)g_out, (const float*)g_stats, (T*)pre,
+        (float*)partial, nx, ny, R, s.seg);
+    int err = (int)cudaGetLastError();
+    record_launch(kernel, s.grid, s.block, s.smem);
+    if (err != 0) return err;
+    const dim3 sum_grid((R + DBIAS_LANES - 1) / DBIAS_LANES),
+        sum_block(DBIAS_LANES, DBIAS_STRIPES);
+    merge_fused_dbias_kernel<<<sum_grid, sum_block, 0, stream>>>(
+        (const float*)partial, (float*)dbias, B * nx * (int)s.grid.x, R);
+    err = (int)cudaGetLastError();
+    record_launch(merge_fused_dbias_kernel, sum_grid, sum_block, 0);
+    return err;
+}
+
 template <typename T>
 int launch_fused_bwd(const void* out, const void* g_out, const void* g_stats,
                      void* pre, void* partial, void* dbias, int B, int nx,
                      int ny, int R, void* stream) {
     clear_launches();
-    const dim3 pre_grid(nx, B), pre_block(lane_threads(R));
-    merge_fused_pre_kernel<T><<<pre_grid, pre_block, 0,
-                                (cudaStream_t)stream>>>(
-        (const T*)out, (const T*)g_out, (const float*)g_stats, (T*)pre,
-        (float*)partial, nx, ny, R);
-    int err = (int)cudaGetLastError();
-    record_launch(merge_fused_pre_kernel<T>, pre_grid, pre_block, 0);
-    if (err != 0) return err;
-    const dim3 sum_grid((R + 31) / 32), sum_block(32, 32);
-    merge_fused_dbias_kernel<<<sum_grid, sum_block, 0,
-                               (cudaStream_t)stream>>>(
-        (const float*)partial, (float*)dbias, B * nx, R);
-    err = (int)cudaGetLastError();
-    record_launch(merge_fused_dbias_kernel, sum_grid, sum_block, 0);
-    return err;
+    constexpr int WIDE = 16 / sizeof(T);
+    const int vec = vector_width(R, sizeof(T), out, g_out, pre);
+    return vec == WIDE
+        ? launch_fused_bwd_vec<T, WIDE>(out, g_out, g_stats, pre, partial,
+                                        dbias, B, nx, ny, R,
+                                        (cudaStream_t)stream)
+        : launch_fused_bwd_vec<T, 1>(out, g_out, g_stats, pre, partial,
+                                     dbias, B, nx, ny, R,
+                                     (cudaStream_t)stream);
 }
 
 template <typename T, int VEC>
@@ -596,6 +754,17 @@ int merge_launch_facts(int fused, int element_size, int ny, int R,
     // the vector path's shape: it takes at least the scalar path's memory
     const int vec = (R * element_size) % 16 == 0 ? 16 / element_size : 1;
     const MergeShape s = merge_shape(fused != 0, vec, 1, 1, ny, R);
+    facts[0] = (int)s.smem;
+    facts[1] = (int)s.grid.x;
+    return 0;
+}
+
+// What K1's backward launch needs: facts[0] = dynamic shared bytes of a
+// pass-1 block, facts[1] = segments per row (its partial rows per output
+// row: the partial scratch is B x nx x segments x R floats)
+int merge_fused_bwd_facts(int element_size, int ny, int R, int* facts) {
+    const int vec = (R * element_size) % 16 == 0 ? 16 / element_size : 1;
+    const PreShape s = pre_shape(vec, 1, 1, ny, R);
     facts[0] = (int)s.smem;
     facts[1] = (int)s.grid.x;
     return 0;

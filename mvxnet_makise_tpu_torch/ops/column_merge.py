@@ -9,13 +9,17 @@ statistics in.  For CUDA tensors the wrappers launch the kernels of
 backwards are kernels too; for CPU tensors they run the plain versions
 (:func:`merge_taps_fused_plain`, :func:`merge_taps_plain`), whose gradients
 are autograd through the same PyTorch ops.  The plain versions follow the
-JAX specs ``_merge_fused_reference`` and ``merge_taps_reference``.
+JAX specs ``_merge_fused_reference`` and ``merge_taps_reference``;
+``merge_taps_fused_plain(..., accumulate=torch.float32)`` rounds once, as
+the Pallas kernel and the CUDA kernel do in bfloat16.  K1's backward runs
+as a first pass (:func:`merge_fused_pre`: pre and dbias) and K3's
+backward gather of pre.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -36,9 +40,10 @@ LIBRARY = CudaLibrary("column_merge.cu", {
        for fn, args in (("merge_fused", _FUSED), ("merge_taps", _TAPS),
                         ("merge_fused_bwd", _FUSED_BWD),
                         ("merge_taps_bwd", _TAPS))},
-    "merge_launch_facts": (_I, _I, _I, _I, _P)})
+    "merge_launch_facts": (_I, _I, _I, _I, _P),
+    "merge_fused_bwd_facts": (_I, _I, _I, _P)})
 KERNEL = CudaKernel("column_merge", LIBRARY)          # K1 forward
-BWD_KERNEL = CudaKernel("column_merge_bwd", LIBRARY)  # K1 backward: pre, dbias
+BWD_KERNEL = CudaKernel("column_merge_bwd", LIBRARY)  # K1 bwd: pre, dbias
 TAPS_KERNEL = CudaKernel("merge_taps", LIBRARY)       # K3 forward
 TAPS_BWD_KERNEL = CudaKernel("merge_taps_bwd", LIBRARY)  # K3 backward (dy)
 KERNELS = (KERNEL, BWD_KERNEL, TAPS_KERNEL, TAPS_BWD_KERNEL)
@@ -54,6 +59,16 @@ def launch_facts(y: torch.Tensor, ny: int, fused: bool) -> Tuple[int, int]:
     facts = (ctypes.c_int * 2)()
     LIBRARY.library().merge_launch_facts(int(fused), y.element_size(), ny,
                                          y.shape[-1], facts)
+    return facts[0], facts[1]
+
+
+def backward_launch_facts(out: torch.Tensor, ny: int) -> Tuple[int, int]:
+    """(shared bytes per block, segments per row) of K1 backward's first
+    pass for out's dtype and lane count; it takes a scratch of (B, nx,
+    segments, R) float32 dbias partials."""
+    facts = (ctypes.c_int * 2)()
+    LIBRARY.library().merge_fused_bwd_facts(out.element_size(), ny,
+                                            out.shape[-1], facts)
     return facts[0], facts[1]
 
 
@@ -75,12 +90,10 @@ def column_bounds(col_xy: torch.Tensor, col_mask: torch.Tensor,
 # ----------------------------------------------------------- plain versions
 
 
-def merge_taps_plain(y: torch.Tensor, col_cy: torch.Tensor,
-                     bounds: torch.Tensor, grid_shape: Sequence[int]
-                     ) -> torch.Tensor:
-    """Plain PyTorch version of K3: 9 scatter-adds, accumulated in at
-    least float32, returned in y.dtype.  Same contract as
-    :func:`merge_taps`; differentiable by autograd."""
+def _merge_sum(y: torch.Tensor, col_cy: torch.Tensor, bounds: torch.Tensor,
+               grid_shape: Sequence[int]) -> torch.Tensor:
+    """K3's sum, unrounded: 9 scatter-adds in tap order, accumulated in at
+    least float32 and returned in that type."""
     nx, ny = grid_shape[0], grid_shape[1]
     B, V, _, R = y.shape
     acc = torch.promote_types(y.dtype, torch.float32)
@@ -101,20 +114,38 @@ def merge_taps_plain(y: torch.Tensor, col_cy: torch.Tensor,
             idx = torch.where(ok, ox * ny + oy, torch.full_like(ox, dump))
             out.scatter_add_(1, idx[..., None].expand(B, V, R).long(),
                              y[:, :, kh * 3 + kw, :].to(acc))
-    return out[:, :dump].reshape(B, nx, ny, R).to(y.dtype)
+    return out[:, :dump].reshape(B, nx, ny, R)
+
+
+def merge_taps_plain(y: torch.Tensor, col_cy: torch.Tensor,
+                     bounds: torch.Tensor, grid_shape: Sequence[int]
+                     ) -> torch.Tensor:
+    """Plain PyTorch version of K3: 9 scatter-adds, accumulated in at
+    least float32, returned in y.dtype.  Same contract as
+    :func:`merge_taps`; differentiable by autograd."""
+    return _merge_sum(y, col_cy, bounds, grid_shape).to(y.dtype)
 
 
 def merge_taps_fused_plain(y: torch.Tensor, col_cy: torch.Tensor,
                            bounds: torch.Tensor, bias_packed: torch.Tensor,
-                           grid_shape: Sequence[int]
+                           grid_shape: Sequence[int], *,
+                           accumulate: Optional[torch.dtype] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K1: :func:`merge_taps_plain`, then bias,
     ReLU and the per-row sums, accumulated in at least float32.  Same
     outputs as the kernel (see :func:`merge_taps_fused`).  Its gradient is
     autograd's: ReLU passes the cotangent only where the output is > 0, as
-    ``_merge_fused_bwd`` does, so the bias gradient sums over every cell."""
+    ``_merge_fused_bwd`` does, so the bias gradient sums over every cell.
+
+    By default the merged sum is rounded to y.dtype before the bias is
+    added, as JAX's XLA reference (``_merge_fused_reference``) does.
+    ``accumulate=torch.float32`` keeps it in float32 and rounds once, after
+    the bias and the ReLU, as the Pallas kernel and the CUDA kernel do (a
+    reference for bfloat16; the same result for float32)."""
     acc = torch.promote_types(y.dtype, torch.float32)
-    merged = merge_taps_plain(y, col_cy, bounds, grid_shape)
+    merged = (_merge_sum(y, col_cy, bounds, grid_shape).to(accumulate)
+              if accumulate is not None
+              else merge_taps_plain(y, col_cy, bounds, grid_shape))
     emitted = torch.relu(merged.to(acc) + bias_packed.to(acc))
     stats = torch.stack([emitted.sum(dim=2),
                          (emitted * emitted).sum(dim=2)], dim=2)
@@ -220,35 +251,53 @@ class _MergeTapsFused(torch.autograd.Function):
         return dy, None, None, dbias, None
 
 
+def merge_fused_pre(out: torch.Tensor, g_out: torch.Tensor,
+                    g_stats: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 backward's first pass on the card: the pre-ReLU cotangent
+    ``pre = (g_out + g_sum + 2 out g_sq) * [out > 0]`` (the stats
+    cotangents rounded to out.dtype, one rounding of pre) and the bias
+    gradient, its sum over every cell.  out, g_out: (B, nx, ny, R);
+    g_stats: (B, nx, 2, R) float32.  Returns (pre in out.dtype, dbias (R,)
+    float32)."""
+    B, nx, ny, R = out.shape
+    if g_out.shape != out.shape or tuple(g_stats.shape) != (B, nx, 2, R):
+        raise ValueError("out, g_out must be (B, nx, ny, R) and g_stats "
+                         "(B, nx, 2, R)")
+    out = out.contiguous()
+    g_out = g_out.to(out.dtype).contiguous()
+    g_stats = g_stats.to(torch.float32).contiguous()
+    pre = torch.empty_like(out)
+    dbias = torch.empty((R,), dtype=torch.float32, device=out.device)
+    if not out.numel():
+        return pre, dbias.zero_()
+    # each (row, segment) block's dbias partial, summed by the second pass
+    need, segments = backward_launch_facts(out, ny)
+    if need > _MAX_SHARED:
+        raise ValueError(f"R={R}: K1's backward would need {need} bytes of "
+                         f"shared memory per block")
+    partial = torch.empty((B, nx, segments, R), dtype=torch.float32,
+                          device=out.device)
+    BWD_KERNEL.launch(_fn("merge_fused_bwd", out.dtype), ptr(out),
+                      ptr(g_out), ptr(g_stats), ptr(pre), ptr(partial),
+                      ptr(dbias), B, nx, ny, R, stream_handle(out.device))
+    return pre, dbias
+
+
 def merge_taps_fused_backward(out: torch.Tensor, g_out: torch.Tensor,
                               g_stats: torch.Tensor, col_cy: torch.Tensor,
                               bounds: torch.Tensor, V: int,
                               grid_shape: Sequence[int]
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1's backward on the card (``_merge_fused_bwd``): the pre-ReLU
-    cotangent and the bias gradient in one kernel pair, then K3's
-    backward gather of it.  out, g_out: (B, nx, ny, R); g_stats: (B, nx,
-    2, R) float32.  Returns (dy (B, V, 9, R) in out.dtype, dbias (R,)
-    float32)."""
+    """K1's backward on the card (``_merge_fused_bwd``): the first pass
+    (:func:`merge_fused_pre`), then K3's backward gather of pre.  out,
+    g_out: (B, nx, ny, R); g_stats: (B, nx, 2, R) float32.  Returns (dy
+    (B, V, 9, R) in out.dtype, dbias (R,) float32)."""
     nx, ny = int(grid_shape[0]), int(grid_shape[1])
-    B, R = out.shape[0], out.shape[-1]
-    if (tuple(out.shape) != (B, nx, ny, R) or g_out.shape != out.shape
-            or tuple(g_stats.shape) != (B, nx, 2, R)):
-        raise ValueError("out, g_out must be (B, nx, ny, R) and g_stats "
-                         "(B, nx, 2, R)")
-    g_out = g_out.to(out.dtype).contiguous()
-    g_stats = g_stats.to(torch.float32).contiguous()
-    pre = torch.empty_like(out)
-    partial = torch.empty((B * nx, R), dtype=torch.float32,
-                          device=out.device)
-    dbias = torch.empty((R,), dtype=torch.float32, device=out.device)
-    if out.numel():
-        BWD_KERNEL.launch(_fn("merge_fused_bwd", out.dtype), ptr(out),
-                          ptr(g_out), ptr(g_stats), ptr(pre), ptr(partial),
-                          ptr(dbias), B, nx, ny, R,
-                          stream_handle(out.device))
-    else:
-        dbias.zero_()
+    if tuple(out.shape[1:3]) != (nx, ny):
+        raise ValueError(f"out must be (B, {nx}, {ny}, R), got "
+                         f"{tuple(out.shape)}")
+    pre, dbias = merge_fused_pre(out, g_out, g_stats)
     return merge_taps_backward(pre, col_cy, bounds, V, grid_shape), dbias
 
 

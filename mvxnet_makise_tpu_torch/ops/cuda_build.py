@@ -37,10 +37,11 @@ BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-lineinfo", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
-# fields of one launch in the record of csrc/launch_record.cuh
+# fields of one launch in the record of csrc/launch_record.cuh (a library
+# built before the record had ``launch_fields`` lacks the last)
 LAUNCH_FIELDS = (("grid", 3), ("block", 3), ("shared_bytes", 1),
                  ("registers", 1), ("local_bytes", 1),
-                 ("static_shared_bytes", 1))
+                 ("static_shared_bytes", 1), ("blocks_per_sm", 1))
 _MAX_LAUNCHES = 4
 
 
@@ -131,13 +132,15 @@ class CudaLibrary:
 def read_launches(lib) -> List[dict]:
     """What a loaded library's last entry point launched, one dict per
     kernel (see ``LAUNCH_FIELDS``)."""
-    width = sum(n for _, n in LAUNCH_FIELDS)
+    fields = LAUNCH_FIELDS if hasattr(lib, "launch_fields") \
+        else LAUNCH_FIELDS[:-1]
+    width = sum(n for _, n in fields)
     buf = (ctypes.c_int * (width * _MAX_LAUNCHES))()
     n = lib.last_launches(buf, _MAX_LAUNCHES)
     out = []
     for k in range(n):
         vals, rec = list(buf[k * width:(k + 1) * width]), {}
-        for name, count in LAUNCH_FIELDS:
+        for name, count in fields:
             rec[name] = vals[:count] if count > 1 else vals[0]
             vals = vals[count:]
         out.append(rec)

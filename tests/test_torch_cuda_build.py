@@ -42,16 +42,21 @@ class _FakeLib:
     """Stands in for a loaded library: one launcher that returns ``code``
     and a launch record of two kernels."""
 
+    ROWS = [[10, 2, 4, 80, 4, 1, 14080, 96, 0, 0, 2],
+            [11, 1, 1, 32, 32, 1, 0, 24, 0, 4224, 1]]
+
     def __init__(self, code=0):
         self.code = code
 
     def launch_me(self, *args):
         return self.code
 
+    def launch_fields(self):
+        return len(self.ROWS[0])
+
     def last_launches(self, buf, capacity):
-        width = sum(n for _, n in cuda_build.LAUNCH_FIELDS)
-        rows = [[10, 2, 4, 80, 4, 1, 14080, 96, 0, 0],
-                [11, 1, 1, 32, 32, 1, 0, 24, 0, 4224]]
+        width = self.launch_fields()
+        rows = self.ROWS
         for k, row in enumerate(rows[:capacity]):
             for i, v in enumerate(row):
                 buf[k * width + i] = v
@@ -71,6 +76,31 @@ def test_launch_counts_and_records(tmp_path, monkeypatch):
     kernel.launch("launch_me", ctypes.c_int(1))
     assert kernel.launches == 2
     assert kernel.last_launch == [
+        {"grid": [10, 2, 4], "block": [80, 4, 1], "shared_bytes": 14080,
+         "registers": 96, "local_bytes": 0, "static_shared_bytes": 0,
+         "blocks_per_sm": 2},
+        {"grid": [11, 1, 1], "block": [32, 32, 1], "shared_bytes": 0,
+         "registers": 24, "local_bytes": 0, "static_shared_bytes": 4224,
+         "blocks_per_sm": 1}]
+
+
+class _OldLib(_FakeLib):
+    """A library built before the record had ``launch_fields`` and its
+    blocks per SM (another build compared by ``kernel_ab.py``)."""
+
+    ROWS = [row[:-1] for row in _FakeLib.ROWS]
+    launch_fields = property()   # absent: hasattr is False
+
+    def last_launches(self, buf, capacity):
+        for k, row in enumerate(self.ROWS[:capacity]):
+            for i, v in enumerate(row):
+                buf[k * len(row) + i] = v
+        return min(len(self.ROWS), capacity)
+
+
+def test_launch_record_of_a_library_without_blocks_per_sm():
+    assert not hasattr(_OldLib(), "launch_fields")
+    assert cuda_build.read_launches(_OldLib()) == [
         {"grid": [10, 2, 4], "block": [80, 4, 1], "shared_bytes": 14080,
          "registers": 96, "local_bytes": 0, "static_shared_bytes": 0},
         {"grid": [11, 1, 1], "block": [32, 32, 1], "shared_bytes": 0,

@@ -8,8 +8,10 @@ that has only PyTorch:
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest
 
 Tolerances: K1 and K3 sum the same taps in the same order as their plain
-versions (1e-5 on float32, or exact where a test says so; bfloat16 outputs
-round to 8 bits, 2e-2); K2
+versions: K1's output equals its plain version summed in float32 and
+rounded once (in bfloat16 ``accumulate=torch.float32``) exactly, its row
+statistics within 1e-5 (float32 sums in another order); K3 within 1e-5 in
+float32, or exact where a test says so (bfloat16 2e-2); K2
 rounds its four weighted taps in another order (1e-5).  K2 in bfloat16
 sums in float32 and rounds once, where its plain version rounds each of
 its 11 products and sums to bfloat16 (each rounding at most 2^-9 of the
@@ -89,10 +91,24 @@ def _columns(seed, R, B=2, V=160, grid=GRID):
     return y, col_cy, bounds, bias
 
 
+def _merge_reference(y, col_cy, bounds, bias, grid):
+    """K1's plain version as the kernel computes it: in bfloat16 the float32
+    tap sum plus the bias, rounded once (``accumulate=torch.float32``)."""
+    acc = torch.float32 if y.dtype == torch.bfloat16 else None
+    return column_merge.merge_taps_fused_plain(y, col_cy, bounds, bias,
+                                               grid, accumulate=acc)
+
+
+def _assert_stats_close(stats, want):
+    """Row statistics: float32 sums of the same values in another order,
+    1e-5 of the largest value."""
+    scale = max(1.0, float(want.detach().abs().max()))
+    assert float((stats - want).abs().max()) <= 1e-5 * scale
+
+
 @pytest.mark.parametrize("R", [6, 320])
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
-                                       (torch.bfloat16, 2e-2)])
-def test_merge_kernel_matches_plain(cuda, R, dtype, tol):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_merge_kernel_matches_plain(cuda, R, dtype):
     y, col_cy, bounds, bias = [torch.from_numpy(a).to(cuda)
                                for a in _columns(0, R)]
     y = y.to(dtype)
@@ -100,12 +116,12 @@ def test_merge_kernel_matches_plain(cuda, R, dtype, tol):
     out, stats = column_merge.merge_taps_fused(y, col_cy, bounds, bias,
                                                GRID)
     assert column_merge.KERNEL.launches == before + 1
-    want_out, want_stats = column_merge.merge_taps_fused_plain(
-        y, col_cy, bounds, bias, GRID)
+    want_out, want_stats = _merge_reference(y, col_cy, bounds, bias, GRID)
     torch.cuda.synchronize()
-    torch.testing.assert_close(out.float(), want_out.float(), rtol=tol,
-                               atol=tol)
-    torch.testing.assert_close(stats, want_stats, rtol=tol, atol=tol * 10)
+    assert torch.equal(out, want_out)
+    _assert_stats_close(stats, want_stats)
+    if dtype == torch.float32:
+        torch.testing.assert_close(stats, want_stats, rtol=1e-5, atol=1e-4)
     # the empty frame is relu(bias) everywhere
     torch.testing.assert_close(
         out[0].float(), torch.relu(bias).to(dtype).float().expand(
@@ -117,9 +133,19 @@ def test_merge_kernel_matches_plain(cuda, R, dtype, tol):
 
 
 # grids whose ny is no multiple of the forward's oy tile (ny / 4 rounded
-# up) nor of its cell groups, a full-width row of 400 cells, and a row
-# narrower than the four tiles
-EDGE_GRIDS = [(8, 37, 10), (4, 400, 10), (5, 3, 10)]
+# up), of its cell groups nor of the backward first pass's segments and
+# cell groups, a full-width row of 400 cells, and a row narrower than the
+# four tiles
+EDGE_GRIDS = [(8, 37, 10), (4, 400, 10), (5, 3, 10), (3, 251, 10)]
+
+
+def _misaligned(t):
+    """The same values one element into a fresh buffer."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t.reshape(-1)
+    t = buf[1:].view(t.shape)
+    assert t.data_ptr() % 16 and t.is_contiguous()
+    return t
 
 
 @pytest.mark.parametrize("grid", EDGE_GRIDS)
@@ -129,30 +155,22 @@ EDGE_GRIDS = [(8, 37, 10), (4, 400, 10), (5, 3, 10)]
 def test_merge_kernels_edge_shapes(cuda, grid, R, dtype, misaligned):
     """K1, K3 and K3's backward on edge shapes, on the vector path (R =
     320, 16-byte rows) and the scalar one (R = 6, or any y that does not
-    start on a 16-byte boundary).  In float32 K1's and K3's outputs are
-    bit-equal to the plain versions (same adds in the same order) and the
-    row statistics within 1e-5; in bfloat16 K1 adds the bias to the
-    float32 sum, the plain version to the sum rounded to bfloat16, which
-    moves out by a rounding step (2e-2) and the statistics by up to 2e-2
-    relative (2e-1 absolute), as in test_merge_kernel_matches_plain.  K3
-    adds and rounds as the plain version does in both types, and its
-    backward copies: exact."""
+    start on a 16-byte boundary).  K1's output is bit-equal to its plain
+    version summed in float32 and rounded once (in float32 the default
+    plain version; in bfloat16 ``accumulate=torch.float32``) and the row
+    statistics within 1e-5; K3 adds and rounds as its plain version does
+    in both types, and its backward copies: exact."""
     V = grid[0] * grid[1] + 16
     y, col_cy, bounds, bias = [torch.from_numpy(a).to(cuda) for a in
                                _columns(7, R, V=V, grid=grid)]
     y = y.to(dtype)
     if misaligned:
-        # the same values one element into a fresh buffer
-        buf = torch.empty(y.numel() + 1, dtype=dtype, device=cuda)
-        buf[1:] = y.reshape(-1)
-        y = buf[1:].view(y.shape)
-        assert y.data_ptr() % 16 and y.is_contiguous()
+        y = _misaligned(y)
     y.requires_grad_()
     out, stats = column_merge.merge_taps_fused(y, col_cy, bounds, bias, grid)
     out2, stats2 = column_merge.merge_taps_fused(y, col_cy, bounds, bias,
                                                  grid)
-    want_out, want_stats = column_merge.merge_taps_fused_plain(
-        y, col_cy, bounds, bias, grid)
+    want_out, want_stats = _merge_reference(y, col_cy, bounds, bias, grid)
     merged = column_merge.merge_taps(y, col_cy, bounds, grid)
     want_merged = column_merge.merge_taps_plain(y, col_cy, bounds, grid)
     g = torch.randn(merged.shape, generator=torch.Generator().manual_seed(1)
@@ -160,15 +178,8 @@ def test_merge_kernels_edge_shapes(cuda, grid, R, dtype, misaligned):
     (dy,) = torch.autograd.grad(merged, y, g)
     (want_dy,) = torch.autograd.grad(want_merged, y, g)
     torch.cuda.synchronize()
-    if dtype == torch.float32:
-        assert torch.equal(out, want_out)
-        torch.testing.assert_close(stats, want_stats, rtol=1e-5,
-                                   atol=1e-5 * max(1.0, float(
-                                       want_stats.detach().abs().max())))
-    else:
-        torch.testing.assert_close(out.float(), want_out.float(), rtol=2e-2,
-                                   atol=2e-2)
-        torch.testing.assert_close(stats, want_stats, rtol=2e-2, atol=2e-1)
+    assert torch.equal(out, want_out)
+    _assert_stats_close(stats, want_stats)
     assert torch.equal(out2, out) and torch.equal(stats2, stats)
     assert torch.equal(merged, want_merged)
     assert torch.equal(dy, want_dy)
@@ -242,6 +253,62 @@ def test_merge_backward_kernel_matches_plain(cuda, R, dtype, tol):
     dy2, dbias2 = column_merge.merge_taps_fused_backward(
         out.detach(), g_out, g_stats, col_cy, bounds, y.shape[1], GRID)
     assert torch.equal(dy2, dy) and torch.equal(dbias2, dbias)
+
+
+@pytest.mark.parametrize("grid", EDGE_GRIDS)
+@pytest.mark.parametrize("R", [6, 320])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("B", [1, 2])
+def test_merge_backward_edge_shapes(cuda, grid, R, dtype, tol, misaligned,
+                                    B):
+    """K1 backward's first pass on the edge grids and on a batch of one
+    frame, on the vector path (R = 320) and the scalar one (R = 6, or an
+    out that does not start on a 16-byte boundary): pre within a rounding
+    of ``_merge_fused_bwd``'s formula on K1's output (the kernel may fuse a
+    multiply-add), dy exactly K3's plain gather of that pre, dbias within
+    1e-5 of the float32 sum of that pre (another order), and pre and dbias
+    the same bits twice."""
+    V = grid[0] * grid[1] + 16
+    y, col_cy, bounds, bias = [torch.from_numpy(a).to(cuda) for a in
+                               _columns(11, R, V=V, grid=grid)]
+    if B == 1:
+        # the frame with columns (frame 0 is empty)
+        y, col_cy, bounds = y[1:], col_cy[1:], bounds[1:]
+    out, stats = column_merge.merge_taps_fused(y.to(dtype), col_cy, bounds,
+                                               bias, grid)
+    gen = torch.Generator().manual_seed(12)
+    g_out = torch.randn(out.shape, generator=gen).to(cuda, dtype)
+    g_stats = torch.randn(stats.shape, generator=gen).to(cuda) * 0.1
+    if misaligned:
+        out, g_out = _misaligned(out), _misaligned(g_out)
+    before = column_merge.BWD_KERNEL.launches
+    pre, dbias = column_merge.merge_fused_pre(out, g_out, g_stats)
+    assert column_merge.BWD_KERNEL.launches == before + 1
+    vec = 16 // out.element_size()
+    vector = (R * out.element_size()) % 16 == 0 and not misaligned
+    block = column_merge.BWD_KERNEL.last_launch[0]["block"]
+    assert block[0] == min(R // vec if vector else R, 320)
+    pre2, dbias2 = column_merge.merge_fused_pre(out, g_out, g_stats)
+    dy, dbias3 = column_merge.merge_taps_fused_backward(
+        out, g_out, g_stats, col_cy, bounds, V, grid)
+    o = out.float()
+    want_pre = ((g_out.float() + g_stats[:, :, 0, None].to(dtype).float()
+                 + 2 * o * g_stats[:, :, 1, None].to(dtype).float())
+                * (o > 0)).to(dtype)
+    yp = y.to(dtype).requires_grad_()
+    (want_dy,) = torch.autograd.grad(column_merge.merge_taps_plain(
+        yp, col_cy, bounds, grid), yp, pre)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(pre.float(), want_pre.float(), rtol=tol,
+                               atol=tol)
+    assert torch.equal(dy, want_dy)
+    want_dbias = pre.float().sum((0, 1, 2))
+    scale = max(1.0, float(want_dbias.abs().max()))
+    assert float((dbias - want_dbias).abs().max()) <= 1e-5 * scale
+    assert torch.equal(pre2, pre) and torch.equal(dbias2, dbias)
+    assert torch.equal(dbias3, dbias)
 
 
 @pytest.mark.parametrize("R", [6, 320])

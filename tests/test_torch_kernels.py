@@ -89,6 +89,38 @@ def test_merge_taps_fused_matches_jax(case, backend):
             np.broadcast_to(np.maximum(bias, 0), got_out[1].shape))
 
 
+def test_merge_taps_fused_bf16_rounds_once_as_the_pallas_kernel():
+    """bfloat16 K1: the Pallas kernel adds the bias to its float32 tap sum
+    and rounds once; JAX's XLA reference rounds the sum to bfloat16 first.
+    The plain version's ``accumulate=torch.float32`` option (the card
+    kernel's reference) follows the first, its default the second.  Every
+    value is k/64 with |k| <= 255, so each float32 sum is exact and only
+    the rounding to bfloat16 can differ: bit-equal both ways, and the two
+    references differ somewhere."""
+    y, col_cy, bounds, _ = _columns(5, V=96, dense_row=True)
+    rng = np.random.default_rng(5)
+    y = (rng.integers(-255, 256, y.shape) / 64).astype(np.float32)
+    bias = (rng.integers(-255, 256, (R,)) / 64).astype(np.float32)
+    jy = jnp.asarray(y, jnp.bfloat16)
+    ty = torch.from_numpy(y).to(torch.bfloat16)
+    assert np.array_equal(np.asarray(jy, np.float32), ty.float().numpy())
+    args = (jnp.asarray(col_cy), jnp.asarray(bounds), jnp.asarray(bias),
+            GRID)
+    targs = (*map(torch.from_numpy, (col_cy, bounds, bias)), GRID)
+    once_out, once_stats = column_merge.merge_taps_fused_plain(
+        ty, *targs, accumulate=torch.float32)
+    twice_out, twice_stats = column_merge.merge_taps_fused_plain(ty, *targs)
+    for backend, out, stats in (("pallas", once_out, once_stats),
+                                ("xla", twice_out, twice_stats)):
+        want_out, want_stats = jax_merge_taps_fused(jy, *args, backend)
+        assert out.dtype == torch.bfloat16
+        np.testing.assert_array_equal(out.float().numpy(),
+                                      np.asarray(want_out, np.float32))
+        np.testing.assert_allclose(stats.numpy(), np.asarray(want_stats),
+                                   **TOL)
+    assert not torch.equal(once_out, twice_out)
+
+
 def test_column_bounds_match_jax():
     rng = np.random.default_rng(4)
     nx, ny, nz = GRID
