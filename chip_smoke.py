@@ -78,6 +78,30 @@ Phases, each printed as one JSON line:
 13. ``shipped_configs``: ``configs/serving_economy.yaml`` serves 16
     frames through ``detect_stream`` at its batch 8;
     ``configs/multiclass.yaml`` takes two train steps.
+14. ``weights``: a seeded model exported to the reference's layout and
+    imported back (fused and LiDAR-only): the state dicts and the
+    detections on the card bit-identical; ``tools.train`` for one epoch
+    on the kitti tree with ``--image-weights`` (a seed-1 extractor in
+    torchvision's layout): the trained extractor bit-equal to the
+    imported weights, K1, K1's backward and K2 launched;
+    ``Detector.set_params`` from seed-0 to seed-1 weights, in float32 and
+    under ``configs/full_fusion.yaml``: maps and detections equal to a
+    fresh Detector's on the seed-1 weights (and the maps changed);
+    ``tools.export_checkpoint`` of that epoch reads back through
+    ``import_reference_checkpoint`` bit-identically.
+15. ``gen_experiment``: ``tools.gen_experiment.run`` at world 32, pool
+    128, batch 4, LiDAR-only, the reference trunk and loss, GEN_STEPS
+    steps (about two minutes of the card) with an eval halfway and at
+    the end: the mean loss of the last 10 % of steps below the first
+    10 %'s, two well-formed record lines with ``best.per_class_max``, K1
+    and its backward launched; AP@0.5 and 0.7, recall and steps/s are
+    recorded, not gated (single-seed AP at this size is noisy).
+16. ``bench``: ``python -m mvxnet_makise_tpu_torch.tools.bench`` as a
+    subprocess in its default mode (end-to-end detection),
+    ``--raw-only``, ``--train``, ``--lidar-only`` and ``--config
+    configs/serving_economy.yaml``, at BENCH_ITERS iterations: each exits
+    0 with a last line whose ``value`` is positive; with ``--rpn
+    no-such-trunk`` it must exit nonzero.
 
 The kernel phases run each kernel in float32 and, for K1, K1's backward,
 K3, K3's backward and K2, again in bfloat16 (``*_bf16`` records) on the
@@ -180,6 +204,18 @@ KITTI_DEVICE = "cuda"
 # the card: the configurations run as written; a CPU rehearsal cuts them
 # to a tiny grid here)
 CONFIG_OVERRIDES = {}
+# the gen_experiment phase: GEN_STEPS steps on a GEN_POOL-frame pool
+GEN_STEPS = 1200
+GEN_POOL = 128
+# the bench phase: timed iterations per run, the supervisor's cap per
+# attempt (s), and arguments appended to every run (none on the card)
+BENCH_ITERS = 3
+BENCH_ATTEMPT_S = 300
+BENCH_ARGS = []
+BENCH_RUNS = {"e2e": [], "raw_only": ["--raw-only"], "train": ["--train"],
+              "lidar_only": ["--lidar-only"],
+              "serving_economy": ["--config",
+                                  "configs/serving_economy.yaml"]}
 
 
 class SmokeFailure(RuntimeError):
@@ -2021,6 +2057,259 @@ def phase_shipped_configs(device, kernels, work):
     return rec
 
 
+# ------------------------------------------------------------- weights
+
+
+def same_state(a, b) -> bool:
+    """Two state dicts with the same keys and bit-identical tensors."""
+    import torch
+
+    return a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and torch.equal(a[k].cpu(), b[k].cpu())
+        for k in a)
+
+
+def same_maps(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def phase_weights(device, kernels, work, root):
+    """Weights to and from the reference layout (module docstring, phase
+    14): the export/import round trip, ``tools.train --image-weights``,
+    ``Detector.set_params`` and ``tools.export_checkpoint``."""
+    import torch
+
+    from mvxnet_makise_tpu_torch.config import Config, load_config
+    from mvxnet_makise_tpu_torch.models.import_reference import (
+        export_reference_checkpoint,
+        import_reference_checkpoint,
+    )
+    from mvxnet_makise_tpu_torch.models.mvxnet import build_model
+    from mvxnet_makise_tpu_torch.models.resnet_fpn import (
+        load_torchvision_fpn_weights,
+    )
+    from mvxnet_makise_tpu_torch.serve import Detector
+    from mvxnet_makise_tpu_torch.tools import export_checkpoint
+    from mvxnet_makise_tpu_torch.tools import train as train_cli
+    from mvxnet_makise_tpu_torch.train import checkpoint as ckpt
+
+    cfg = Config(**KITTI_CFG)
+    frames = make_frames(cfg, BATCH, seed=9)
+    round_trip = {}
+    for name, with_images in (("fused", True), ("lidar_only", False)):
+        det = Detector.create(cfg, checkpoint_epoch=0, seed=0, device=device,
+                              with_images=with_images)
+        mine = {k: v.cpu() for k, v in det.model.state_dict().items()}
+        ref = export_reference_checkpoint(mine, with_images)
+        back = import_reference_checkpoint(ref, with_images)
+        again = Detector.create(cfg, state_dict=back, device=device,
+                                with_images=with_images)
+        got, want = again.detect_frames(frames), det.detect_frames(frames)
+        round_trip[name] = {
+            "reference_tensors": len(ref),
+            "state_dict_equal": same_state(mine, back),
+            "detections_equal": same_detections(got, want),
+            "detections_per_frame": check_detections(got, cfg)}
+        det.close()
+        again.close()
+        del det, again
+
+    # --image-weights: the extractor of a seed-1 model, exported in
+    # torchvision's layout (``backbone.body...``, ``backbone.fpn...``)
+    ref1 = export_reference_checkpoint(
+        build_model(cfg, seed=1, device="cpu").state_dict())
+    tv = {k.removeprefix("head.extractor."): v for k, v in ref1.items()
+          if k.startswith("head.extractor.backbone.")}
+    pth = os.path.join(work, "image_weights.pth")
+    torch.save(tv, pth)
+    ckpt_dir = os.path.join(work, "ckpt_weights")
+    cfg_path = os.path.join(work, "weights.yaml")
+    with open(cfg_path, "w") as f:
+        for k, v in dict(KITTI_CFG, checkpoint_dir=ckpt_dir).items():
+            f.write(f"{k}: {list(v) if isinstance(v, tuple) else v}\n")
+    torch.backends.cudnn.deterministic = False
+    for k in kernels:
+        k.launches = 0
+    run_tool(train_cli.main, [root, "-n", "1", "--no-augment", "--config",
+                              cfg_path, "--device", KITTI_DEVICE,
+                              "--image-weights", pth])
+    launches = {k.name: k.launches for k in kernels}
+    trained = ckpt.model_state(ckpt_dir, 1)
+    imported = {"head.extractor.backbone." + k: v for k, v in
+                load_torchvision_fpn_weights(tv, strict=True).items()}
+    extractor_equal = same_state(
+        {k: v for k, v in trained.items() if k.startswith("head.extractor.")},
+        imported)
+    needed = ("column_merge", "column_merge_bwd", "fpn_gather")
+    missing = [n for n in needed if launches[n] == 0]
+
+    # set_params: seed 0 -> seed 1, against a fresh detector on seed 1
+    swaps = {}
+    ff = load_config(config_yaml(work, "full_fusion",
+                                 checkpoint_dir=os.path.join(work, "swap")))
+    for name, c in (("float32", cfg), ("full_fusion", ff)):
+        w1 = build_model(c, seed=1, device="cpu").state_dict()
+        fr = make_frames(c, c.batch_size, seed=10)
+        det = Detector.create(c, checkpoint_epoch=0, seed=0, device=device)
+        arrays = det.assemble(fr)
+        before = det.maps(*arrays)
+        det.set_params(w1)
+        after_maps, after = det.maps(*arrays), det.detect_frames(fr)
+        fresh = Detector.create(c, state_dict=w1, device=device)
+        want_maps, want = fresh.maps(*arrays), fresh.detect_frames(fr)
+        swaps[name] = {"maps_equal_fresh": same_maps(after_maps, want_maps),
+                       "maps_changed": not same_maps(before, after_maps),
+                       "detections_equal_fresh": same_detections(after,
+                                                                 want),
+                       "map_dtype": str(after_maps[0].dtype),
+                       "detections_per_frame": check_detections(after, c)}
+        det.close()
+        fresh.close()
+        del det, fresh
+
+    out = os.path.join(work, "exported_reference.pkl")
+    log = run_tool(export_checkpoint.main, ["-r", "1", "-o", out,
+                                            "--checkpoint-dir", ckpt_dir])
+    reread = import_reference_checkpoint(torch.load(out, weights_only=True))
+    export_equal = same_state(reread, trained)
+    torch.cuda.empty_cache()
+
+    ok = (all(r["state_dict_equal"] and r["detections_equal"]
+              for r in round_trip.values())
+          and extractor_equal and not missing and export_equal
+          and all(s["maps_equal_fresh"] and s["maps_changed"]
+                  and s["detections_equal_fresh"] for s in swaps.values())
+          and swaps["full_fusion"]["map_dtype"] == "torch.bfloat16")
+    rec = {"phase": "weights", "ok": bool(ok),
+           "config": f"default Config {KITTI_CFG} (float32) and "
+                     f"configs/full_fusion.yaml as written",
+           "round_trip": round_trip,
+           "image_weights": {"extractor_equal_imported": extractor_equal,
+                             "launches": launches,
+                             "missing_kernels": missing},
+           "set_params": swaps,
+           "export_checkpoint": {"log": log.strip(),
+                                 "reimported_equal": export_equal}}
+    emit(rec)
+    check(ok, "weights phase failed: see its record")
+    return rec
+
+
+# ------------------------------------------------------------- gen_experiment
+
+# the keys of a gen_experiment record line (the JAX tool's)
+GEN_RECORD_KEYS = ("protocol", "final", "steps", "pool", "batch", "world",
+                   "classes", "loss", "with_images", "image_min_side", "rpn",
+                   "elapsed_s", "backend", "ap50", "recall50", "ap70",
+                   "per_class", "best")
+
+
+def phase_gen_experiment(device, kernels, work):
+    """The synthetic protocol (module docstring, phase 15):
+    ``tools.gen_experiment.run`` at world 32, pool GEN_POOL, batch 4,
+    LiDAR-only, reference trunk and loss, GEN_STEPS steps, an eval halfway
+    and at the end."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from mvxnet_makise_tpu_torch.tools import gen_experiment
+
+    record = os.path.join(work, "gen_experiment.jsonl")
+    half = GEN_STEPS // 2
+    # training runs under PyTorch's default cuDNN choice, as the tool runs
+    # alone (a Detector sets cudnn.deterministic process-wide)
+    torch.backends.cudnn.deterministic = False
+    for k in kernels:
+        k.launches = 0
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        last = gen_experiment.run(
+            GEN_STEPS, GEN_POOL, half, "reference", 1e-3, 4, n_val=32,
+            log_every=half, world=32, rpn="reference", record=record,
+            device=device)
+    seconds = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    losses = [h["total_loss"] for h in last["history"]]
+    n = max(len(losses) // 10, 1)
+    first, final = float(np.mean(losses[:n])), float(np.mean(losses[-n:]))
+    with open(record) as f:
+        lines = [json.loads(ln) for ln in f]
+    well_formed = (
+        len(lines) == 2 and [ln["steps"] for ln in lines] == [half, GEN_STEPS]
+        and [ln["final"] for ln in lines] == [False, True]
+        and all(set(GEN_RECORD_KEYS) <= set(ln)
+                and "per_class_max" in ln["best"]
+                and ln["backend"] == torch.device(device).type
+                for ln in lines))
+    missing = [n for n in ("column_merge", "column_merge_bwd")
+               if launches[n] == 0]
+    ok = (len(losses) == GEN_STEPS and bool(np.isfinite(losses).all())
+          and final < first and well_formed and not missing)
+    rec = {"phase": "gen_experiment", "ok": bool(ok),
+           "config": f"tools.gen_experiment: world 32, pool {GEN_POOL}, "
+                     f"batch 4, LiDAR-only, reference RPN trunk and loss, "
+                     f"{GEN_STEPS} steps, 32 val frames",
+           "seconds": seconds, "steps_per_s": last["steps_per_s"],
+           "loss_first_10pct": first, "loss_last_10pct": final,
+           "evals": [{k: ln[k] for k in ("steps", "ap50", "ap70",
+                                         "recall50", "elapsed_s",
+                                         "steps_per_s")} for ln in lines],
+           "best": last["best"], "records_well_formed": well_formed,
+           "launches": launches, "missing_kernels": missing,
+           "log": [ln for ln in log.getvalue().splitlines()
+                   if ln.startswith(("step", "  step"))]}
+    emit(rec)
+    check(ok, "gen_experiment phase failed: see its record")
+    return rec
+
+
+# ------------------------------------------------------------- bench
+
+
+def phase_bench():
+    """``tools.bench`` as a user runs it (module docstring, phase 16): one
+    subprocess per mode, each exiting 0 with a last line whose value is
+    positive, and one with an unknown trunk that must exit nonzero."""
+    import torch
+
+    torch.cuda.empty_cache()
+    base = [sys.executable, "-m", "mvxnet_makise_tpu_torch.tools.bench",
+            "--iters", str(BENCH_ITERS), "--warmup", "1",
+            "--max-seconds", str(BENCH_ATTEMPT_S), *BENCH_ARGS]
+    lines, ok = {}, True
+    for name, extra in BENCH_RUNS.items():
+        t0 = time.perf_counter()
+        proc = subprocess.run(base + extra, cwd=ROOT, capture_output=True,
+                              text=True, timeout=3 * BENCH_ATTEMPT_S)
+        out = proc.stdout.strip().splitlines()
+        try:
+            line = json.loads(out[-1]) if out else None
+        except json.JSONDecodeError:
+            line = None
+        good = (proc.returncode == 0 and line is not None
+                and line.get("value", 0) > 0)
+        ok &= good
+        lines[name] = {"rc": proc.returncode, "seconds":
+                       time.perf_counter() - t0, "line": line,
+                       **({} if good else {"stderr": proc.stderr[-2000:]})}
+    bad = subprocess.run(base + ["--rpn", "no-such-trunk"], cwd=ROOT,
+                         capture_output=True, text=True,
+                         timeout=3 * BENCH_ATTEMPT_S)
+    refused = bad.returncode != 0
+    rec = {"phase": "bench", "ok": bool(ok and refused),
+           "command": " ".join(base[1:]), "runs": lines,
+           "unknown_trunk_rc": bad.returncode}
+    emit(rec)
+    check(ok and refused, "bench phase failed: see its record")
+    return rec
+
+
 def phase_reference_bf16(device):
     """The small configuration under use_bf16: the card's bfloat16 maps
     at most 2x as far from a float64 CPU run of the same weights as the
@@ -2199,8 +2488,11 @@ def main() -> int:
         fused = phase_full_fusion(device, kernels, work, root, val_ids)
         lidar = phase_lidar_only(device, kernels, work, root, val_ids)
         phase_shipped_configs(device, kernels, work)
+        phase_weights(device, kernels, work, root)
+        phase_gen_experiment(device, kernels, work)
     finally:
         shutil.rmtree(work)    # the tree and every phase's checkpoints
+    phase_bench()
 
     cm, pm = ("mvxnet_makise_tpu_torch/csrc/column_merge.cu",
               "mvxnet_makise_tpu/ops/pallas_column_merge.py")

@@ -16,15 +16,20 @@ ops       : voxelizer, column compaction, anchors and target assignment,
             (``ops/gather.py``) and the dense voxel scatter, forward and
             backward (``ops/scatter_grid.py``).
 models    : blocks, the point-major LiDAR branch, the ResNet50-FPN image
-            branch, the fused ``MVXNetPM`` and the weight bridge from the
-            JAX parameter tree (``models/weights.py``).
+            branch, the fused ``MVXNetPM``, the weight bridge from the
+            JAX parameter tree (``models/weights.py``) and the weights to
+            and from the reference PyTorch model and torchvision
+            (``models/import_reference.py``).
 data      : the host feed (C++ crop/project/shuffle/pad) and synthetic
             KITTI-like frames.
 eval      : prediction decoding.
 train     : the batch layout, loss, optimizer, train step, checkpoints
             and the training loop.
-utils     : loss statistics and phase timers.
-tools     : ``python -m mvxnet_makise_tpu_torch.tools.train``.
+utils     : loss statistics, phase timers and the bench's stage
+            watchdogs and supervisor.
+tools     : ``python -m mvxnet_makise_tpu_torch.tools.<name>``: train,
+            evaluate, detect, cropdata, create_gtdatabase,
+            export_checkpoint, gen_experiment, probe and bench.
 serve     : ``Detector``, the serving entry point.
 
 Entry points run on the CUDA device unless the caller passes

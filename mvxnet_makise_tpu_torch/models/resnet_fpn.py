@@ -12,12 +12,15 @@ nearest-neighbour top-down upsampling; returns pyramid levels 0..2
 Module names follow the torchvision state dict (``body.conv1``,
 ``body.layer1.0.downsample.0``, ``fpn.inner_blocks.0.0``, ...), with the
 norms' parameters named ``scale`` and ``bias``.
+:func:`load_torchvision_fpn_weights` turns a torchvision Faster R-CNN
+ResNet50-FPN(-v2) state dict into this module's.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Any, Dict, List, Mapping, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -129,3 +132,82 @@ class ResNet50FPN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         return self.fpn(self.body(x))
+
+
+# ---------------------------------------------------------------------------
+# torchvision weight import
+# ---------------------------------------------------------------------------
+
+# torchvision's BatchNorm2d eps
+BN_EPS = 1e-5
+
+
+def _fold_bn(sd: Mapping[str, torch.Tensor], prefix: str,
+             eps: float = BN_EPS) -> Dict[str, torch.Tensor]:
+    """torch BN parameters and running statistics -> the folded affine's
+    float32 (scale, bias): y = x * scale + bias in eval mode.  Computed in
+    numpy, whose float32 division and square root round once each (the
+    JAX package's loader gives the same bits)."""
+    w, b, mean, var = (sd[f"{prefix}.{k}"].numpy().astype(np.float32)
+                       for k in ("weight", "bias", "running_mean",
+                                 "running_var"))
+    scale = w / np.sqrt(var + np.float32(eps))
+    return {"scale": torch.from_numpy(scale),
+            "bias": torch.from_numpy(b - mean * scale)}
+
+
+class _Recording(dict):
+    """A dict that remembers which keys were read."""
+
+    def __init__(self, items):
+        super().__init__(items)
+        self.consumed = set()
+
+    def __getitem__(self, key):
+        self.consumed.add(key)
+        return super().__getitem__(key)
+
+
+def load_torchvision_fpn_weights(state_dict: Mapping[str, Any],
+                                 stage_sizes: Sequence[int] = (3, 4, 6, 3),
+                                 num_levels: int = 3,
+                                 strict: bool = False
+                                 ) -> Dict[str, torch.Tensor]:
+    """A torchvision Faster R-CNN ResNet50-FPN(-v2) ``state_dict`` (or just
+    its ``backbone.*`` keys, with or without the prefix; tensors or numpy
+    arrays) -> a float32 :class:`ResNet50FPN` state dict.
+
+    The keys read are the ones this module holds: each ``Conv2d`` takes
+    its weight as it is (both use OIHW), each :class:`FoldedNorm` folds
+    the BatchNorm of the same name (torchvision's eps, 1e-5); the v2 FPN
+    blocks are ``inner_blocks.{i}.0/.1`` and ``layer_blocks.{i}.0/.1``
+    (conv, norm).  ``strict=True`` also raises a ValueError naming every
+    input key left unread (a renamed block would otherwise leave random
+    weights in its place), except BatchNorm ``num_batches_tracked``
+    counters and the FPN output blocks past ``num_levels``, which the
+    reference does not consume.  A key the module needs and the input
+    lacks raises a KeyError."""
+    sd = _Recording(
+        (k.removeprefix("backbone."), torch.as_tensor(
+            v.detach() if hasattr(v, "detach") else np.asarray(v)).cpu())
+        for k, v in state_dict.items())
+    with torch.device("meta"):
+        target = ResNet50FPN(stage_sizes=stage_sizes, num_levels=num_levels)
+    out: Dict[str, torch.Tensor] = {}
+    for name, m in target.named_modules():
+        if isinstance(m, nn.Conv2d):
+            out[name + ".weight"] = sd[name + ".weight"].to(torch.float32)
+        elif isinstance(m, FoldedNorm):
+            out.update({f"{name}.{k}": v
+                        for k, v in _fold_bn(sd, name).items()})
+    if strict:
+        exempt = tuple(f"fpn.layer_blocks.{li}." for li in
+                       range(num_levels, len(stage_sizes)))
+        leftover = sorted(k for k in sd if k not in sd.consumed
+                          and not k.endswith("num_batches_tracked")
+                          and not k.startswith(exempt))
+        if leftover:
+            raise ValueError(
+                "torchvision state_dict keys not consumed by the FPN "
+                f"import ({len(leftover)}): {leftover[:8]}...")
+    return out

@@ -10,6 +10,7 @@ so the result does not depend on the order of the writes).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -59,7 +60,20 @@ def min_assign_window(grid_hw: Sequence[int],
     maximised over GT footprint scales up to ``max_gt_scale``x the anchor
     footprint — converts to cells (plus half a cell for the GT's rounding
     to its centre cell).
+
+    The bisection takes ~0.2 s of host time, and every frame of every
+    train step checks its window (JAX checks it once, while tracing), so
+    the result is kept per footprint and grid.
     """
+    return _min_assign_window(
+        tuple(int(g) for g in grid_hw), tuple(float(v) for v in velo_range),
+        tuple(float(b) for b in box_size), float(neg_threshold),
+        float(max_gt_scale))
+
+
+@functools.lru_cache(maxsize=64)
+def _min_assign_window(grid_hw, velo_range, box_size, neg_threshold,
+                       max_gt_scale) -> int:
     H, W = grid_hw
     ls = (velo_range[3] - velo_range[0]) / H
     ws = (velo_range[4] - velo_range[1]) / W

@@ -7,8 +7,9 @@ decode -> rotated NMS (the LiDAR-only detector, ``with_images=False``,
 skips the image branch).  Host work per frame is the C++
 crop+project+shuffle+pad (``data/native.assemble_frame``).  Under
 ``cfg.use_bf16`` the model runs on bfloat16 copies of its parameters,
-cast once when the detector is made (JAX's serving casts them once too);
-the points stay float32.
+cast once when the detector is made and again by :meth:`Detector.set_params`
+(JAX's serving casts them once per weight set too); the points stay
+float32.
 
 PyTorch compiles nothing per batch size, so no request is padded to a
 pooled batch size; :meth:`Detector.warm` builds the CUDA kernels and runs
@@ -17,10 +18,12 @@ one batch of each size ahead of the first request instead.
 Example:
     det = Detector.create(cfg, checkpoint_epoch=10)   # on the CUDA card
     results = det.detect_frames([(points, calib, image), ...])
+    for r in det.detect_stream(frames, batch_size=8): ...
 """
 
 from __future__ import annotations
 
+import itertools
 import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterable, List, Mapping, NamedTuple, Optional, Sequence
@@ -116,6 +119,15 @@ class Detector:
             ckpt.restore_model(cfg.checkpoint_dir, checkpoint_epoch, model)
         return cls(cfg, model, with_images, **kw)
 
+    @torch.no_grad()
+    def set_params(self, state_dict: Mapping[str, torch.Tensor]) -> None:
+        """Swap in new weights (e.g. a fresh checkpoint): a state dict of
+        the detector's model, loaded strictly, and under ``use_bf16`` the
+        bfloat16 copies the forward runs on cast again from it."""
+        self.model.load_state_dict(state_dict, strict=True)
+        self.tensors = cast_for_compute(self.model, self.cfg.use_bf16,
+                                        self.with_images)
+
     def close(self) -> None:
         """Stop the host-feed thread pool."""
         if self._assemble_pool is not None:
@@ -210,22 +222,44 @@ class Detector:
 
         ``frames`` is any iterable of (points, calib, image-or-None).
         Batch i+1 is assembled on a feed thread while batch i runs on the
-        device, so host and device work overlap."""
-        def next_batch(it):
-            buf = []
-            for f in it:
-                buf.append(f)
-                if len(buf) == batch_size:
-                    break
-            return self.assemble(buf) if buf else None
+        device (:meth:`stream_batches`), so host and device work
+        overlap; the last batch holds what is left."""
+        def assembled():
+            it = iter(frames)
 
-        it = iter(frames)
-        with ThreadPoolExecutor(max_workers=1,
-                                thread_name_prefix="feed") as feed:
-            pending = feed.submit(next_batch, it)
-            while True:
-                arrays = pending.result()
-                if arrays is None:
-                    break
-                pending = feed.submit(next_batch, it)
-                yield from self.detect_batch(*arrays)
+            def next_batch():
+                buf = list(itertools.islice(it, batch_size))
+                return (*self.assemble(buf), len(buf)) if buf else None
+
+            with ThreadPoolExecutor(max_workers=1,
+                                    thread_name_prefix="feed") as feed:
+                pending = feed.submit(next_batch)
+                while True:
+                    batch = pending.result()
+                    if batch is None:
+                        return
+                    pending = feed.submit(next_batch)
+                    yield batch
+
+        yield from self.stream_batches(assembled(), batch_size)
+
+    def stream_batches(self, batches: Iterable, batch_size: int):
+        """The core of :meth:`detect_stream`: consumes pre-assembled
+        ``(points, num_points, images, n_real)`` batches (numpy arrays or
+        tensors, at most ``batch_size`` rows, the first ``n_real`` real)
+        and yields ``n_real`` :class:`FrameDetections` per batch, in order.
+        Batch i+1 is dispatched (uploaded, run and decoded on the device)
+        before batch i's detections are read back."""
+        prev = None
+        for points, num_points, images, n_real in batches:
+            rows = len(points)
+            if not 0 < n_real <= rows <= batch_size:
+                raise ValueError(
+                    f"a batch of {rows} rows with {n_real} real frames "
+                    f"does not fit batch_size {batch_size}")
+            cur = self.run_batch(points, num_points, images)[:n_real]
+            if prev is not None:
+                yield from self._unpack(prev)
+            prev = cur
+        if prev is not None:
+            yield from self._unpack(prev)

@@ -3,7 +3,8 @@
     python -m mvxnet_makise_tpu_torch.tools.train <dataroot> [-n EPOCHS]
         [-r RESUME] [--config FILE] [--batch-size B] [--limit N]
         [--no-augment] [--eval-every N] [--eval-limit N] [--keep-last K]
-        [--max-seconds S] [--bf16] [--lidar-only] [--device cuda|cpu]
+        [--max-seconds S] [--bf16] [--lidar-only] [--image-weights PTH]
+        [--device cuda|cpu]
     python -m mvxnet_makise_tpu_torch.tools.train --synthetic N [...]
 
 Port of ``mvxnet_makise_tpu/tools/train.py``.  From a KITTI tree it trains
@@ -14,9 +15,10 @@ every N epochs.  ``--synthetic N`` trains on N synthetic frames instead
 (held-out synthetic frames for ``--eval-every``).  ``--bf16`` computes in
 bfloat16 (``use_bf16``, as a config may also say); ``--lidar-only`` trains
 the VoxelNet branch without the image head, from frames loaded without
-their images.  Runs on the CUDA card unless ``--device cpu``.  The JAX
-CLI's ``--image-weights`` is not in the port yet (ROADMAP queue 1) and is
-refused.
+their images.  ``--image-weights`` loads a torchvision Faster R-CNN
+ResNet50-FPN(-v2) file (a state dict, or a saved module whose
+``state_dict()`` is taken) into the frozen extractor.  Runs on the CUDA
+card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -57,13 +59,13 @@ def main(argv=None) -> int:
                    help="compute in bfloat16 (use_bf16)")
     p.add_argument("--lidar-only", action="store_true",
                    help="train the VoxelNet branch without the image head")
-    p.add_argument("--image-weights", default=None,
-                   help="not in the port yet: refused")
+    p.add_argument("--image-weights", default=None, metavar="PTH",
+                   help="torchvision Faster R-CNN ResNet50-FPN(-v2) "
+                        "weights for the frozen extractor: a state dict "
+                        "or a saved module, read with torch.load("
+                        "weights_only=False), which runs the file's "
+                        "pickled code: pass only files you trust")
     args = p.parse_args(argv)
-    if args.image_weights:
-        p.error("--image-weights (torchvision's extractor weights) is not "
-                "in the port yet (ROADMAP queue 1, item 9: "
-                "--image-weights)")
 
     from mvxnet_makise_tpu_torch.config import load_config
     from mvxnet_makise_tpu_torch.data.kitti import KittiFrame
@@ -129,11 +131,25 @@ def main(argv=None) -> int:
                       "augmentation (build one with "
                       "tools.create_gtdatabase)")
 
+    image_weights = (read_image_weights(args.image_weights)
+                     if args.image_weights else None)
     train(cfg, frames, gt_db=gt_db, resume_epoch=args.resume,
           eval_frames=eval_frames, eval_every=max(args.eval_every, 1),
           time_budget_s=args.max_seconds, device=args.device,
-          with_images=with_images)
+          with_images=with_images, image_weights=image_weights)
     return 0
+
+
+def read_image_weights(path: str):
+    """The state dict in a torchvision weights file, read on the CPU: the
+    file's own dict, or ``.state_dict()`` of a saved module.  A saved
+    module needs ``weights_only=False``, which unpickles arbitrary code."""
+    import torch
+
+    weights = torch.load(path, map_location="cpu", weights_only=False)
+    if hasattr(weights, "state_dict"):
+        weights = weights.state_dict()
+    return weights
 
 
 if __name__ == "__main__":

@@ -63,11 +63,16 @@ def restore_checkpoint(checkpoint_dir: str, epoch: int,
     return state
 
 
+def model_state(checkpoint_dir: str, epoch: int) -> dict:
+    """Epoch ``epoch``'s model state dict, on the CPU."""
+    return _load(checkpoint_dir, epoch)["model"]
+
+
 def restore_model(checkpoint_dir: str, epoch: int,
                   model: torch.nn.Module) -> torch.nn.Module:
     """Load epoch ``epoch``'s model weights into ``model`` (in place; no
     optimizer) and return it."""
-    model.load_state_dict(_load(checkpoint_dir, epoch)["model"], strict=True)
+    model.load_state_dict(model_state(checkpoint_dir, epoch), strict=True)
     return model
 
 

@@ -24,6 +24,7 @@ from typing import (
     Iterable,
     Iterator,
     List,
+    Mapping,
     NamedTuple,
     Optional,
     Sequence,
@@ -48,6 +49,9 @@ from mvxnet_makise_tpu_torch.device import (
 from mvxnet_makise_tpu_torch.eval import runner
 from mvxnet_makise_tpu_torch.geometry.calib import lidar_to_image
 from mvxnet_makise_tpu_torch.models.mvxnet import build_model
+from mvxnet_makise_tpu_torch.models.resnet_fpn import (
+    load_torchvision_fpn_weights,
+)
 from mvxnet_makise_tpu_torch.ops.assign import create_anchors
 from mvxnet_makise_tpu_torch.train import checkpoint as ckpt
 from mvxnet_makise_tpu_torch.train.state import TrainState
@@ -113,14 +117,21 @@ def preprocess_train_frame(frame: KittiFrame, cfg: Config,
 
 
 def build_model_and_state(cfg: Config, device: DeviceLike = None,
-                          seed: int = 0, with_images: bool = True
+                          seed: int = 0, with_images: bool = True,
+                          image_weights: Optional[Mapping] = None
                           ) -> Tuple[nn.Module, TrainState]:
     """The detector ``cfg`` describes (the LiDAR-only branch with
     ``with_images=False``), with random weights from ``seed``, in train
     mode on ``device`` (default: the CUDA card), and a fresh
-    :class:`TrainState`."""
+    :class:`TrainState`.  ``image_weights``, a torchvision Faster R-CNN
+    ResNet50-FPN state dict, goes into the frozen extractor of the fused
+    model (``models/resnet_fpn.load_torchvision_fpn_weights``); the
+    LiDAR-only model has none and ignores it."""
     model = build_model(cfg, seed=seed, device=device,
                         with_images=with_images).train()
+    if image_weights is not None and with_images:
+        model.head.extractor.backbone.load_state_dict(
+            load_torchvision_fpn_weights(image_weights), strict=True)
     return model, TrainState.create(cfg, model)
 
 
@@ -194,7 +205,8 @@ def train(cfg: Config,
           time_budget_s: Optional[float] = None,
           device: DeviceLike = None,
           seed: int = 0,
-          with_images: bool = True) -> TrainState:
+          with_images: bool = True,
+          image_weights: Optional[Mapping] = None) -> TrainState:
     """Train on in-RAM frames for ``num_epochs`` (default
     ``cfg.num_epochs``) after ``resume_epoch``; returns the final state.
     ``with_images=False`` trains the LiDAR-only detector (frames may then
@@ -202,8 +214,10 @@ def train(cfg: Config,
     float32 masters (``train/state``).
 
     ``gt_db`` (``data/gt_database.load_database``) turns on the paste
-    augmentation.  Host prep runs on ``workers`` threads (default
-    ``cfg.num_workers``).  After each epoch's checkpoint, every
+    augmentation.  ``image_weights`` (a torchvision Faster R-CNN
+    ResNet50-FPN state dict) initializes the frozen extractor
+    (:func:`build_model_and_state`).  Host prep runs on ``workers``
+    threads (default ``cfg.num_workers``).  After each epoch's checkpoint, every
     ``eval_every`` epochs, the AP on ``eval_frames`` is printed as
     ``epoch N val CLASS: AP=... R=... gt=...``.  Random weights come from
     ``seed``; with ``resume_epoch`` > 0 the model, optimizer and step count
@@ -225,7 +239,8 @@ def train(cfg: Config,
     anchors = torch.from_numpy(create_anchors(
         cfg.feature_map_shape, cfg.velo_range, cfg.anchor_sizes)).to(dev)
     _, state = build_model_and_state(cfg, device=dev, seed=seed,
-                                     with_images=with_images)
+                                     with_images=with_images,
+                                     image_weights=image_weights)
     if resume_epoch > 0:
         ckpt.restore_checkpoint(cfg.checkpoint_dir, resume_epoch, state)
 

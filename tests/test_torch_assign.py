@@ -115,3 +115,32 @@ def test_assign_refuses_a_narrow_window():
             grid_hw=CFG.feature_map_shape, velo_range=CFG.velo_range,
             box_size=CFG.anchor_sizes[0], neg_threshold=0.45,
             pos_threshold=0.6, window=1)
+
+
+def test_the_window_bound_is_computed_once_per_footprint():
+    """The coverage proof behind the window check costs ~0.2 s of host
+    time; the train step checks the window for every frame, so the bound
+    is kept per footprint and grid (lists and tuples alike) and stays
+    JAX's."""
+    from mvxnet_makise_tpu.ops.assign import (
+        min_assign_window as jax_window,
+    )
+    from mvxnet_makise_tpu_torch.ops import assign
+
+    assign._min_assign_window.cache_clear()
+    args = (CFG.feature_map_shape, CFG.velo_range, CFG.anchor_sizes[0],
+            0.45)
+    first = assign.min_assign_window(*args)
+    again = assign.min_assign_window(*(list(a) if isinstance(a, tuple)
+                                       else a for a in args))
+    info = assign._min_assign_window.cache_info()
+    assert first == again == jax_window(*args)
+    assert (info.misses, info.hits) == (1, 1)
+    gt, mask, _ = _boxes(0, CFG)
+    for _ in range(2):
+        assign_anchor_targets(
+            torch.from_numpy(gt), torch.from_numpy(mask),
+            grid_hw=CFG.feature_map_shape, velo_range=CFG.velo_range,
+            box_size=CFG.anchor_sizes[0], neg_threshold=0.45,
+            pos_threshold=0.6, window=CFG.assign_window)
+    assert assign._min_assign_window.cache_info().misses == 1

@@ -32,7 +32,13 @@ from mvxnet_makise_tpu_torch.config import load_config
 from mvxnet_makise_tpu_torch.data.gt_database import load_database
 from mvxnet_makise_tpu_torch.data.kitti import load_dataset
 from mvxnet_makise_tpu_torch.data.synthetic import toy_calib, write_kitti_tree
+from mvxnet_makise_tpu_torch.models.import_reference import (
+    export_reference_checkpoint,
+)
 from mvxnet_makise_tpu_torch.models.mvxnet import build_model
+from mvxnet_makise_tpu_torch.models.resnet_fpn import (
+    load_torchvision_fpn_weights,
+)
 from mvxnet_makise_tpu_torch.serve import Detector
 from mvxnet_makise_tpu_torch.tools import (
     create_gtdatabase,
@@ -157,29 +163,61 @@ def test_tools_chain_on_the_cpu(tree, tmp_path, capsys):
             assert np.isfinite(np.asarray(parts[1:], np.float64)).all()
 
 
+def _torchvision_file(path, seed):
+    """A fabricated torchvision Faster R-CNN ResNet50-FPN state dict with
+    the real key layout (``backbone.body...``, ``backbone.fpn...``, BN
+    statistics and the unused fourth FPN output block, plus an
+    ``rpn.head`` key the extractor does not take), saved to ``path``: a
+    seeded model's extractor in the reference layout, its BatchNorm
+    statistics random."""
+    ref = export_reference_checkpoint(build_model(
+        load_config(None, **KW), seed=seed, device="cpu").state_dict())
+    gen = torch.Generator().manual_seed(seed)
+    tv = {}
+    for k, v in ref.items():
+        if not k.startswith("head.extractor.backbone."):
+            continue
+        if k.endswith(("running_mean", "bias")):
+            v = 0.1 * torch.randn(v.shape, generator=gen)
+        elif k.endswith(("running_var", "bn1.weight", "bn2.weight",
+                         "bn3.weight")):
+            v = 0.5 + torch.rand(v.shape, generator=gen)
+        tv[k.removeprefix("head.extractor.")] = v
+    for k in list(tv):
+        if k.startswith("backbone.fpn.layer_blocks.0."):
+            tv[k.replace("blocks.0.", "blocks.3.")] = tv[k].clone()
+    tv["rpn.head.conv.0.0.weight"] = torch.zeros(256, 256, 3, 3)
+    torch.save(tv, path)
+    return tv
+
+
 @pytest.mark.parametrize("option", [[], ["--lidar-only"], ["--bf16"],
-                                    ["--image-weights", "w.pt"]],
+                                    ["--image-weights", "w.pth"]],
                          ids=["fused", "lidar-only", "bf16",
                               "image-weights"])
 def test_train_cli_synthetic_eval_and_refusals(option, tmp_path,
                                                monkeypatch, capsys):
-    """``--synthetic`` with the val AP, fused, LiDAR-only or in bfloat16;
-    ``--image-weights`` is refused."""
+    """``--synthetic`` with the val AP, fused, LiDAR-only, in bfloat16, or
+    with ``--image-weights`` (a torchvision file): after the epoch the
+    frozen extractor holds the imported weights."""
     monkeypatch.chdir(tmp_path)
     cfg_path = _yaml(tmp_path / "tiny.yaml")
     args = ["--synthetic", "2", "-n", "1", "--eval-every", "1", "--config",
             cfg_path, "--device", "cpu", *option]
     if "--image-weights" in option:
-        with pytest.raises(SystemExit):
-            train_cli.main(args)
-        assert "ROADMAP queue 1, item 9" in capsys.readouterr().err
-        return
+        tv = _torchvision_file(tmp_path / "w.pth", seed=3)
     assert train_cli.main(args) == 0
     assert "epoch 1 val Car: AP=" in capsys.readouterr().out
     saved = torch.load("checkpoints/epoch1", weights_only=True)["model"]
     assert any(k.startswith("head.") for k in saved) == (
         "--lidar-only" not in option)
     assert all(v.dtype == torch.float32 for v in saved.values())
+    if "--image-weights" in option:
+        imported = load_torchvision_fpn_weights(tv)
+        assert len(imported) == sum(k.startswith("head.extractor.")
+                                    for k in saved)
+        for k, v in imported.items():
+            assert torch.equal(saved["head.extractor.backbone." + k], v), k
 
 
 def test_detector_create_restores_checkpoints(tmp_path):
