@@ -75,10 +75,30 @@ Phases, each printed as one JSON line:
 12. ``lidar_only``: ``configs/lidar_only.yaml`` with ``--lidar-only``
     through the three tools and ``detect_stream``: float32 maps, K1 and
     its backward on the path, K2 not.
-13. ``shipped_configs``: ``configs/serving_economy.yaml`` serves 16
+13. ``fusion_modes`` (after ``lidar_only``): ``fusion_mode="voxel"``
+    (VoxelFusion) at the full default ``Config``, float32, batch 4, seed-0
+    weights: ``detect_frames`` and ``detect_stream`` on 8 synthetic frames
+    (equal; the serving kernels' counts set to 0 just before), device ms
+    per module, K2 at the voxel points held against its plain version
+    (the ``fpn_gather_voxel`` record), peak memory; the voxel model at the
+    small configuration against float64 on the CPU; FIXED_STEPS steps of
+    ``configs/full_fusion.yaml`` with ``fusion_mode: voxel`` (bfloat16,
+    batch 4) on one fixed batch: the loss falls, every trainable
+    parameter gets a finite nonzero gradient, the extractor stays
+    bit-unchanged, K1, its backward and K2 launch; ms per step, split,
+    idle share, peak memory.  Then "slot", "point" and ``cml_mode=
+    "banded"`` at full width serve detections identical to "pm"'s with
+    "column" (the same modules: this checks the routing).
+    ``norm_scope``: the default ``Config`` with ``norm_scope="batch"``,
+    float32, batch 4: one batch served and one train step (finite nonzero
+    gradients, K1, K1's backward, K3's backward and K2 launched), device
+    ms per module (the RPN runs batched), the small configuration against
+    float64 on the CPU, and at batch 1 maps bit-equal to
+    ``norm_scope="sample"``'s.
+14. ``shipped_configs``: ``configs/serving_economy.yaml`` serves 16
     frames through ``detect_stream`` at its batch 8;
     ``configs/multiclass.yaml`` takes two train steps.
-14. ``weights``: a seeded model exported to the reference's layout and
+15. ``weights``: a seeded model exported to the reference's layout and
     imported back (fused and LiDAR-only): the state dicts and the
     detections on the card bit-identical; ``tools.train`` for one epoch
     on the kitti tree with ``--image-weights`` (a seed-1 extractor in
@@ -89,14 +109,14 @@ Phases, each printed as one JSON line:
     fresh Detector's on the seed-1 weights (and the maps changed);
     ``tools.export_checkpoint`` of that epoch reads back through
     ``import_reference_checkpoint`` bit-identically.
-15. ``gen_experiment``: ``tools.gen_experiment.run`` at world 32, pool
+16. ``gen_experiment``: ``tools.gen_experiment.run`` at world 32, pool
     128, batch 4, LiDAR-only, the reference trunk and loss, GEN_STEPS
     steps (about two minutes of the card) with an eval halfway and at
     the end: the mean loss of the last 10 % of steps below the first
     10 %'s, two well-formed record lines with ``best.per_class_max``, K1
     and its backward launched; AP@0.5 and 0.7, recall and steps/s are
     recorded, not gated (single-seed AP at this size is noisy).
-16. ``bench``: ``python -m mvxnet_makise_tpu_torch.tools.bench`` as a
+17. ``bench``: ``python -m mvxnet_makise_tpu_torch.tools.bench`` as a
     subprocess in its default mode (end-to-end detection),
     ``--raw-only``, ``--train``, ``--lidar-only`` and ``--config
     configs/serving_economy.yaml``, at BENCH_ITERS iterations: each exits
@@ -112,7 +132,10 @@ formula, one bfloat16 step per value.  K1's records take a seeded nonzero
 bias and hold the output bit-equal to the float32 sum rounded once
 (``merge_reference``); K1's backward records also time its first pass
 (pre and dbias) and K3's gather of pre apart, each beside its own bound.
-Then a ``kernels`` line, the card's name and power limit, and last
+Then a ``kernels`` line (each record with its launches on the main path
+and on the later paths: ``kitti``, ``lidar_only``, ``fusion_modes``
+serving and training, ``norm_scope``), the card's name and power limit,
+and last
 ``{"ok": true, "device": {...}}``.  Any failed phase exits nonzero before
 that line.  Without a CUDA device the script exits nonzero and prints no
 result.  JAX is never imported.
@@ -171,6 +194,7 @@ TOL = {"column_merge": {"out": 1e-6, "stats": 1e-5},
        "scatter_grid": {"grid": 0.0},
        "scatter_grid_bwd": {"d": 0.0},
        "fpn_gather": {"out": 1e-5},
+       "fpn_gather_voxel": {"out": 1e-5},
        "column_merge_bf16": {"out": 0.0, "stats": 1e-5},
        "column_merge_bwd_bf16": {"dy": 2 ** -8, "dbias": 1e-5},
        "merge_taps_bf16": {"out": 0.0},
@@ -204,6 +228,10 @@ KITTI_DEVICE = "cuda"
 # the card: the configurations run as written; a CPU rehearsal cuts them
 # to a tiny grid here)
 CONFIG_OVERRIDES = {}
+# fields over the default Config in the fusion_modes and norm_scope
+# phases (none on the card: full width; a CPU rehearsal cuts them to a
+# tiny grid here)
+FULL_OVERRIDES = {}
 # the gen_experiment phase: GEN_STEPS steps on a GEN_POOL-frame pool
 GEN_STEPS = 1200
 GEN_POOL = 128
@@ -955,8 +983,8 @@ STAGES = ("head", "head.extractor.backbone", "head.fusion", "backbone.svfe",
           "backbone.rpn")
 
 
-def stage_times(det, arrays, iters: int = 3) -> dict:
-    """Device ms per call of each module in STAGES, of the whole model,
+def stage_times(det, arrays, iters: int = 3, stages=STAGES) -> dict:
+    """Device ms per call of each module in ``stages``, of the whole model,
     and of one ``run_batch`` (voxelize, model, decode), CUDA events
     around each module's forward (hooks; the model is not changed)."""
     import torch
@@ -979,7 +1007,7 @@ def stage_times(det, arrays, iters: int = 3) -> dict:
 
     mods = dict(det.model.named_modules())
     handles = []
-    for name in ("model",) + STAGES:
+    for name in ("model",) + tuple(stages):
         m = det.model if name == "model" else mods[name]
         handles += [m.register_forward_pre_hook(pre(name)),
                     m.register_forward_hook(post(name))]
@@ -1045,25 +1073,28 @@ def model_maps(det, arrays):
         return [m.cpu().double() for m in det.maps(*arrays)]
 
 
-def phase_reference(device):
-    """Small configuration: the card's float32 maps against a float64 run
-    of the same weights on the CPU, beside the CPU's own float32 run.
+SMALL = dict(velo_range=(0.0, -8.0, -3.0, 12.8, 8.0, 1.0),
+             voxel_shape=(32, 40, 10), image_size=(64, 96), max_points=1024,
+             max_voxels=256, samples_per_voxel=8, assign_window=6,
+             image_min_side=0)
+
+
+def small_reference(device, **fields) -> tuple:
+    """The small configuration (with ``fields``): the card's float32 maps
+    of two frames against a float64 run of the same weights on the CPU,
+    beside the CPU's own float32 run.  Returns (distances, ok, detections
+    per frame on the card).
 
     An untrained model amplifies float32 rounding (its stateless norms
     divide near-constant channels by their tiny spread), so its float32
     maps sit ~1e-3 from float64 on any device.  The card passes when it is
     within REF_FACTOR times the CPU's float32 distance; a wrong kernel or
     layout moves the maps by the size of the values themselves."""
-    import torch
-
     from mvxnet_makise_tpu_torch.config import Config
     from mvxnet_makise_tpu_torch.models.mvxnet import build_model
     from mvxnet_makise_tpu_torch.serve import Detector
 
-    cfg = Config(velo_range=(0.0, -8.0, -3.0, 12.8, 8.0, 1.0),
-                 voxel_shape=(32, 40, 10), image_size=(64, 96),
-                 max_points=1024, max_voxels=256, samples_per_voxel=8,
-                 assign_window=6, image_min_side=0)
+    cfg = Config(**SMALL, **fields)
     gpu = Detector.create(cfg, checkpoint_epoch=0, seed=1, device=device)
     weights = {k: v.cpu() for k, v in gpu.model.state_dict().items()}
     cpu32 = Detector.create(cfg, state_dict=weights, device="cpu")
@@ -1082,6 +1113,12 @@ def phase_reference(device):
         d.close()
     ok = all(errs["card"][m] <= max(REF_FACTOR * errs["cpu_float32"][m],
                                     1e-6) for m in ("score", "reg"))
+    return errs, ok, counts
+
+
+def phase_reference(device):
+    """:func:`small_reference` of the default model."""
+    errs, ok, counts = small_reference(device)
     emit({"phase": "reference", "ok": ok, "config": "voxel_shape "
           "(32, 40, 10), image 64x96, native scale",
           "rel_err_vs_cpu_float64": errs, "factor": REF_FACTOR,
@@ -1147,7 +1184,7 @@ TRAIN_STAGES = ("head.fusion", "backbone.svfe", "backbone.fcn",
                 "backbone.cml.conv3", "backbone.rpn")
 
 
-def step_split(model, run_step) -> dict:
+def step_split(model, run_step, stages=TRAIN_STAGES) -> dict:
     """Device ms of one train step, per module forward and backward.
 
     Forward: CUDA events around each module's forward (module hooks).
@@ -1164,7 +1201,7 @@ def step_split(model, run_step) -> dict:
 
     mods = dict(model.named_modules())
     recs = {name: {"f": [], "b0": [], "b1": []} for name in
-            ("model",) + TRAIN_STAGES}
+            ("model",) + tuple(stages)}
     handles = []
 
     def pre(rec):
@@ -2060,6 +2097,266 @@ def phase_shipped_configs(device, kernels, work):
 # ------------------------------------------------------------- weights
 
 
+# modules of the voxel-fusion model timed by phase_fusion_modes
+VOXEL_STAGES = ("svfe", "fcn", "extractor", "imfuse1", "imfuse2", "mix",
+                "cml.conv1", "cml.conv2", "cml.conv3", "rpn")
+VOXEL_TRAIN_STAGES = ("svfe", "fcn", "imfuse1", "imfuse2", "mix",
+                      "cml.conv1", "cml.conv2", "cml.conv3", "rpn")
+
+
+def voxel_gather_inputs(det, frames):
+    """The arguments the voxel model hands K2 for ``frames``: the FPN
+    levels, the per-voxel mean image points (B, V, 2) and the voxel mask,
+    computed with the model's own functions."""
+    import torch
+
+    from mvxnet_makise_tpu_torch.models.image_head import (
+        fpn_pyramid,
+        gather_image_size,
+    )
+    from mvxnet_makise_tpu_torch.train.step import frames_to_batch
+
+    m = det.model
+    pts, nums, imgs = (torch.as_tensor(a).to(det.device)
+                       for a in det.assemble(frames))
+    b = frames_to_batch(pts, nums, imgs, det.cfg)
+    with torch.no_grad():
+        rc = m.voxel_points(b.sorted_points, b.sorted_kept, b.sorted_seg,
+                            b.counts, torch.float32)
+        return (fpn_pyramid(m.extractor, b.images, m.image_min_side),
+                rc.contiguous(), b.vmask.contiguous(),
+                gather_image_size(m.image_size, m.image_min_side))
+
+
+def routed_detections(device, frames, **fields) -> list:
+    """``detect_frames`` of one batch by the default Config's model with
+    ``fields``, seed-0 weights."""
+    import torch
+
+    from mvxnet_makise_tpu_torch.config import Config
+    from mvxnet_makise_tpu_torch.serve import Detector
+
+    det = Detector.create(Config(batch_size=BATCH,
+                                 **{**FULL_OVERRIDES, **fields}),
+                          checkpoint_epoch=0, seed=0, device=device)
+    try:
+        return det.detect_frames(frames)
+    finally:
+        det.close()
+        del det
+        torch.cuda.empty_cache()
+
+
+def phase_fusion_modes(device, kernels, work):
+    """Every model JAX's Config describes, at full width: VoxelFusion
+    serves (K2 at the voxel points held against its plain version), is
+    held to a float64 CPU run at the small configuration and trains under
+    configs/full_fusion.yaml; "slot", "point" and cml_mode "banded" route
+    to the "pm"/"column" model.  Returns (the phase record, K2's record at
+    the voxel points)."""
+    import numpy as np
+    import torch
+
+    from mvxnet_makise_tpu_torch.config import Config, load_config
+    from mvxnet_makise_tpu_torch.models.mvxnet import MVXNetVoxelFusion
+    from mvxnet_makise_tpu_torch.ops.assign import create_anchors
+    from mvxnet_makise_tpu_torch.serve import Detector
+    from mvxnet_makise_tpu_torch.train.loop import (
+        build_model_and_state,
+        make_full_train_step,
+    )
+
+    # serving: the default Config's grid, points and images, float32
+    cfg = Config(fusion_mode="voxel", batch_size=BATCH, **FULL_OVERRIDES)
+    det = Detector.create(cfg, checkpoint_epoch=0, seed=0, device=device)
+    check(isinstance(det.model, MVXNetVoxelFusion),
+          f"fusion_mode voxel built {type(det.model).__name__}")
+    frames = make_frames(cfg, FRAMES, seed=0)
+    det.warm((BATCH,))
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    first = det.detect_frames(frames[:BATCH])
+    t1 = time.perf_counter()
+    streamed = list(det.detect_stream(frames, batch_size=BATCH))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    serve_launches = {k.name: k.launches for k in kernels}
+    peak_serve = torch.cuda.max_memory_allocated() / 2**20
+    check(len(streamed) == len(frames), "detect_stream lost frames")
+    stream_equal = same_detections(first, streamed[:BATCH])
+    counts = check_detections(streamed, cfg)
+    arrays = det.assemble(frames[:BATCH])
+    stages = stage_times(det, arrays, stages=VOXEL_STAGES)
+    gather_args = voxel_gather_inputs(det, frames[:BATCH])
+    k2 = phase_fpn_gather(gather_args, det.model.eps, False,
+                          name="fpn_gather_voxel")
+    del gather_args
+    det.close()
+    del det
+    torch.cuda.empty_cache()
+
+    # the small configuration against float64 on the CPU
+    ref_errs, ref_ok, _ = small_reference(device, fusion_mode="voxel")
+
+    # training: configs/full_fusion.yaml with fusion_mode voxel (JAX
+    # builds VoxelFusion without remat)
+    path = config_yaml(work, "full_fusion", fusion_mode="voxel",
+                       checkpoint_dir=os.path.join(work, "ckpt_voxel"))
+    tcfg = load_config(path)
+    check(tcfg.use_bf16 and tcfg.fusion_mode == "voxel",
+          f"the voxel training config reads {tcfg}")
+    anchors = torch.from_numpy(create_anchors(
+        tcfg.feature_map_shape, tcfg.velo_range,
+        tcfg.anchor_sizes)).to(device)
+    batch = fixed_batch(tcfg, make_train_frames(tcfg, tcfg.batch_size,
+                                                seed=3), device)
+    step = make_full_train_step(tcfg, anchors)
+    model, st = build_model_and_state(tcfg, device=device, seed=0)
+    extractor = {k: v.clone() for k, v in model.extractor.state_dict()
+                 .items()}
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    first_loss, _ = timed_steps(step, st, batch, 1)
+    bad = bad_gradients(model)
+    losses, times = timed_steps(step, st, batch, FIXED_STEPS - 1)
+    train_launches = {k.name: k.launches for k in kernels}
+    losses = first_loss + losses
+    peak_train = torch.cuda.max_memory_allocated() / 2**20
+    extractor_unchanged = all(
+        torch.equal(v, extractor[k])
+        for k, v in model.extractor.state_dict().items())
+    split = step_split(model, lambda: step(st, *batch),
+                       stages=VOXEL_TRAIN_STAGES)
+    prof = profile_step(lambda: step(st, *batch))
+    del model, st, extractor, batch
+    torch.cuda.empty_cache()
+    train_needed = ("column_merge", "column_merge_bwd", "merge_taps_bwd",
+                    "fpn_gather")
+    train_missing = [n for n in train_needed if train_launches[n] == 0]
+
+    # the modes that compute MVXNetPM's function route to it
+    sample = make_frames(Config(**FULL_OVERRIDES), BATCH, seed=5)
+    pm = routed_detections(device, sample)
+    routed = {name: same_detections(pm, routed_detections(
+        device, sample, **fields)) for name, fields in (
+        ("slot", {"fusion_mode": "slot"}),
+        ("point", {"fusion_mode": "point"}),
+        ("banded", {"cml_mode": "banded"}))}
+
+    serve_missing = [n for n in ("column_merge", "fpn_gather")
+                     if serve_launches[n] == 0]
+    ok = (stream_equal and not serve_missing and ref_ok and not bad
+          and not train_missing and extractor_unchanged
+          and np.isfinite(losses).all() and losses[-1] < losses[0]
+          and all(routed.values()))
+    rec = {"phase": "fusion_modes", "ok": bool(ok),
+           "config": "default Config with fusion_mode voxel (full width, "
+                     "float32) serving; configs/full_fusion.yaml with "
+                     "fusion_mode voxel (bfloat16, batch 4) training",
+           "frames": len(frames), "batch_size": BATCH,
+           "detections_per_frame": counts,
+           "detect_stream_equals_detect_frames": stream_equal,
+           "detect_frames_ms_per_frame": (t1 - t0) * 1e3 / BATCH,
+           "detect_stream_ms_per_frame": (t2 - t1) * 1e3 / len(frames),
+           "stage_device_ms": stages, "peak_device_mib_serve": peak_serve,
+           "serve_launches": serve_launches,
+           "missing_serving_kernels": serve_missing,
+           "k2_at_voxel_points_ms": k2["ms"],
+           "reference_rel_err_vs_cpu_float64": ref_errs,
+           "reference_ok": ref_ok,
+           "train_launches": train_launches,
+           "missing_training_kernels": train_missing,
+           "params_without_gradient": bad,
+           "extractor_unchanged": extractor_unchanged,
+           "fixed_batch_losses": losses,
+           "ms_per_step": float(np.median(times)), "ms_per_step_all": times,
+           "peak_device_mib_step": peak_train,
+           "split_device_ms": split, "profile": prof,
+           "routed_detections_equal_pm_column": routed}
+    emit(rec)
+    check(ok, "fusion_modes phase failed: see its record")
+    return rec, k2
+
+
+def phase_norm_scope(device, kernels):
+    """norm_scope="batch" at the default Config, batch 4, float32: one
+    batch served and one train step; the small configuration against
+    float64 on the CPU; at batch 1 the maps equal norm_scope="sample"'s
+    bit for bit."""
+    import numpy as np
+    import torch
+
+    from mvxnet_makise_tpu_torch.config import Config
+    from mvxnet_makise_tpu_torch.ops.assign import create_anchors
+    from mvxnet_makise_tpu_torch.serve import Detector
+    from mvxnet_makise_tpu_torch.train.loop import (
+        build_model_and_state,
+        make_full_train_step,
+    )
+
+    cfg = Config(norm_scope="batch", batch_size=BATCH, **FULL_OVERRIDES)
+    det = Detector.create(cfg, checkpoint_epoch=0, seed=0, device=device)
+    frames = make_frames(cfg, BATCH, seed=6)
+    det.warm((BATCH, 1))
+    for k in kernels:
+        k.launches = 0
+    dets = det.detect_frames(frames)
+    serve_launches = {k.name: k.launches for k in kernels}
+    counts = check_detections(dets, cfg)
+    stages = stage_times(det, det.assemble(frames))
+    one = det.assemble(frames[:1])
+    batch_maps = model_maps(det, one)
+    det.close()
+    del det
+    torch.cuda.empty_cache()
+    det = Detector.create(cfg.replace(norm_scope="sample"),
+                          checkpoint_epoch=0, seed=0, device=device)
+    sample_maps = model_maps(det, one)
+    det.close()
+    del det
+    torch.cuda.empty_cache()
+    one_frame_equal = all(torch.equal(a, b)
+                          for a, b in zip(batch_maps, sample_maps))
+
+    anchors = torch.from_numpy(create_anchors(
+        cfg.feature_map_shape, cfg.velo_range, cfg.anchor_sizes)).to(device)
+    batch = fixed_batch(cfg, make_train_frames(cfg, BATCH, seed=7), device)
+    model, st = build_model_and_state(cfg, device=device, seed=0)
+    step = make_full_train_step(cfg, anchors)
+    for k in kernels:
+        k.launches = 0
+    losses, times = timed_steps(step, st, batch, 1)
+    train_launches = {k.name: k.launches for k in kernels}
+    bad = bad_gradients(model)
+    del model, st, batch
+    torch.cuda.empty_cache()
+
+    ref_errs, ref_ok, _ = small_reference(device, norm_scope="batch")
+    missing = [n for n in ("column_merge", "fpn_gather")
+               if serve_launches[n] == 0] + [
+        n for n in ("column_merge_bwd", "merge_taps_bwd")
+        if train_launches[n] == 0]
+    ok = (one_frame_equal and ref_ok and not bad and not missing
+          and bool(np.isfinite(losses).all()))
+    rec = {"phase": "norm_scope", "ok": bool(ok),
+           "config": "default Config with norm_scope batch (full width, "
+                     "float32), batch 4",
+           "detections_per_frame": counts, "stage_device_ms": stages,
+           "serve_launches": serve_launches,
+           "train_launches": train_launches, "missing_kernels": missing,
+           "train_loss": losses[0], "ms_per_step": times[0],
+           "params_without_gradient": bad,
+           "one_frame_maps_equal_sample_scope": one_frame_equal,
+           "reference_rel_err_vs_cpu_float64": ref_errs,
+           "reference_ok": ref_ok}
+    emit(rec)
+    check(ok, "norm_scope phase failed: see its record")
+    return rec
+
+
 def same_state(a, b) -> bool:
     """Two state dicts with the same keys and bit-identical tensors."""
     import torch
@@ -2487,6 +2784,9 @@ def main() -> int:
         val_ids = ids[KITTI_TRAIN:]
         fused = phase_full_fusion(device, kernels, work, root, val_ids)
         lidar = phase_lidar_only(device, kernels, work, root, val_ids)
+        modes, k2_voxel = phase_fusion_modes(device, kernels, work)
+        recs.append(k2_voxel)
+        scope = phase_norm_scope(device, kernels)
         phase_shipped_configs(device, kernels, work)
         phase_weights(device, kernels, work, root)
         phase_gen_experiment(device, kernels, work)
@@ -2513,6 +2813,10 @@ def main() -> int:
         "merge_taps_bwd_bf16": (cm, f"{pm}:229", "full_fusion", fused),
         "fpn_gather_bf16": (ga, "mvxnet_makise_tpu/ops/pallas_gather.py:162",
                             "full_fusion", fused),
+        "fpn_gather_voxel": (ga,
+                             "mvxnet_makise_tpu/ops/pallas_gather.py:162",
+                             "fusion_modes",
+                             {"launches": modes["serve_launches"]}),
         "scatter_grid": (sg, "mvxnet_makise_tpu/ops/pallas_scatter.py:80",
                          "train_dense3d", dense),
         "scatter_grid_bwd": (sg, "mvxnet_makise_tpu/models/voxelnet.py:268",
@@ -2520,10 +2824,12 @@ def main() -> int:
     line = []
     for r in recs:
         source, replaces, path, run = table[r["name"]]
-        # launch counts are the wrapper's, whatever the dtype: the kitti
-        # and lidar_only paths compute in float32
-        wrapper = r["name"].removesuffix("_bf16")
-        f32 = wrapper == r["name"]
+        # launch counts are the wrapper's, whatever the dtype or shape:
+        # the kitti, lidar_only, fusion_modes serving and norm_scope paths
+        # compute in float32, fusion_modes training in bfloat16
+        base = r["name"].removesuffix("_bf16")
+        f32 = base == r["name"]
+        wrapper = base.removesuffix("_voxel")
         line.append({
             "name": r["name"], "route": "cuda", "source": source,
             "replaces": replaces,
@@ -2533,6 +2839,13 @@ def main() -> int:
             "kitti_launches": kitti["launches"][wrapper] if f32 else None,
             "lidar_only_launches": (lidar["launches"][wrapper] if f32
                                     else None),
+            "fusion_modes_serve_launches": (
+                modes["serve_launches"][wrapper] if f32 else None),
+            "fusion_modes_train_launches": (
+                None if f32 else modes["train_launches"][wrapper]),
+            "norm_scope_launches": (
+                scope["serve_launches"][wrapper]
+                + scope["train_launches"][wrapper] if f32 else None),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -2,14 +2,27 @@
 
 Same fields, defaults, derived quantities and ``__post_init__`` validation,
 so a configuration means the same model in both packages.  Some fields
-select formulations that only the JAX package has (``cml_mode="banded"``,
-the ``fusion_mode`` variants other than the default, ``gather_backend``,
-``fusion_stats``); the port keeps them for interchange and runs the
-function they all compute, or refuses the mode (``models/mvxnet``).
-``norm_scope="batch"`` is validated here and refused by the model builder
-(``models/mvxnet.build_model``).  ``use_bf16`` computes in bfloat16 from
-float32 parameters (``train/state.cast_for_compute``); ``remat``
-recomputes the CML in the backward pass (``models/voxelnet_pm``).
+select formulations that only the JAX package has; the port keeps them
+for interchange and builds the function each computes
+(``models/mvxnet.build_model``):
+
+* ``fusion_mode``: "pm" (the default), "slot" (JAX's ``MVXNet``, over the
+  (V, T, C) slot tensor) and "point" (``MVXNetPointFusion``) compute one
+  function on one parameter tree, and all build the point-major
+  ``MVXNetPM``; "voxel" builds ``MVXNetVoxelFusion``, the one that
+  computes another function.  No slot tensor, banded scatter or per-slot
+  gather is ported;
+* ``cml_mode``: "column" (K1) and "dense3d" (the grid scatter, K4 under
+  ``scatter_backend="pallas"``); "banded", the dense CML's conv1 in a
+  depth-banded layout, builds the column CML;
+* ``gather_backend`` and ``fusion_stats`` select layouts of the one FPN
+  gather (K2) and the one fusion-MLP statistics the port computes.
+
+``norm_scope`` "sample" normalizes each sample with its own statistics,
+"batch" over the whole batch (``models/blocks.set_norm_scope``).
+``use_bf16`` computes in bfloat16 from float32 parameters
+(``train/state.cast_for_compute``); ``remat`` recomputes the CML in the
+backward pass (``models/voxelnet_pm``).
 """
 
 from __future__ import annotations
@@ -93,8 +106,9 @@ class Config:
     # ---- parallelism ----
     mesh_shape: Tuple[int, int] = (1, 1)
 
-    # CML form: "column" (K1) or "dense3d" (scatter, then dense 3-D
-    # convs); the dense scatter is K4 under "pallas", else plain PyTorch.
+    # CML form: "column" (K1), "banded" (built as "column") or "dense3d"
+    # (scatter, then dense 3-D convs); the dense scatter is K4 under
+    # "pallas", else plain PyTorch.
     scatter_backend: str = "auto"
     cml_mode: str = "column"
     # JAX-side formulation switches, kept for interchange (module
@@ -120,7 +134,8 @@ class Config:
     # activations (torch.utils.checkpoint).
     remat: bool = False
 
-    # image-branch dataflow; the port implements "pm" (fully point-major).
+    # image-branch dataflow: "pm" | "slot" | "point" | "voxel" (module
+    # docstring).
     fusion_mode: str = "pm"
 
     # the reference's bilinear gather swaps the interpolation weights vs

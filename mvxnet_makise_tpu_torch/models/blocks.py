@@ -5,12 +5,20 @@ are Linear/Conv -> ReLU -> BatchNorm(affine=False,
 track_running_stats=False): a stateless per-batch standardization, the
 same at train and eval time, with the norm *after* the ReLU.
 
-Per-sample statistics.  The JAX package runs the model once per sample
-(``norm_scope="sample"``, ``train/state.per_sample_apply``), so every norm
-sees one sample.  Here the batch axis stays and every reduction keeps
-it: statistics are per sample by construction, and the kernels see whole
-batches.  Tensors follow PyTorch's layouts: (B, rows, C) for pointwise
-blocks, (B, C, H, W) for convolutions.
+Statistics scope.  Under ``norm_scope="sample"`` (the default) the JAX
+package runs the model once per sample (``train/state.per_sample_apply``),
+so every norm sees one sample.  Here the batch axis stays and every
+reduction keeps it: statistics are per sample, and the kernels see whole
+batches.  Under ``norm_scope="batch"`` JAX applies the model to the whole
+batch, and every norm reduces over the batch axis too.  The port's norm
+modules carry that choice as the attribute ``batch_stats``, which
+:func:`set_norm_scope` sets on a whole model when it is built
+(``models/mvxnet.build_model``); each reduction reads it.  JAX measured
+batch-wide statistics stalling convergence on diverse scenes
+(``mvxnet_makise_tpu/train/state.py``, ``per_sample_apply``): the scope is
+there for A/B runs, and "sample" is the reference's function.  Tensors
+follow PyTorch's layouts: (B, rows, C) for pointwise blocks, (B, C, H, W)
+for convolutions.
 """
 
 from __future__ import annotations
@@ -21,24 +29,39 @@ import torch
 from torch import nn
 
 
+def set_norm_scope(model: nn.Module, scope: str) -> nn.Module:
+    """Set every norm of ``model`` to per-sample (``scope="sample"``) or
+    batch-wide (``"batch"``) statistics; returns the model."""
+    if scope not in ("sample", "batch"):
+        raise ValueError(f"unknown norm_scope {scope!r}")
+    for m in model.modules():
+        if hasattr(m, "batch_stats"):
+            m.batch_stats = scope == "batch"
+    return model
+
+
 def standardize(x: torch.Tensor, eps: float = 1e-6,
-                dims: Sequence[int] = (2, 3)) -> torch.Tensor:
+                dims: Sequence[int] = (2, 3),
+                batch: bool = False) -> torch.Tensor:
     """Zero-mean unit-variance over ``dims`` (biased variance, eps inside
     the square root) — torch BatchNorm(affine=False,
-    track_running_stats=False) with per-sample statistics."""
-    dims = tuple(dims)
+    track_running_stats=False) with per-sample statistics, or with
+    ``batch`` over the batch axis too."""
+    dims = (0, *dims) if batch else tuple(dims)
     mean = x.mean(dim=dims, keepdim=True)
     var = torch.square(x - mean).mean(dim=dims, keepdim=True)
     return (x - mean) * torch.reciprocal(torch.sqrt(var + eps))
 
 
 def masked_standardize(x: torch.Tensor, mask: torch.Tensor,
-                       eps: float = 1e-6) -> torch.Tensor:
-    """Per-sample, per-channel standardization over the rows of x
-    (B, ..., C) where ``mask`` (B, ...) is true; masked-out rows get the
-    same affine map and contribute nothing to the statistics."""
+                       eps: float = 1e-6, batch: bool = False
+                       ) -> torch.Tensor:
+    """Per-sample (with ``batch``, batch-wide), per-channel
+    standardization over the rows of x (B, ..., C) where ``mask`` (B, ...)
+    is true; masked-out rows get the same affine map and contribute
+    nothing to the statistics."""
     m = mask[..., None].to(x.dtype)
-    dims = tuple(range(1, x.dim() - 1))
+    dims = tuple(range(0 if batch else 1, x.dim() - 1))
     denom = torch.clamp(m.sum(dim=dims, keepdim=True), min=1.0)
     mean = (x * m).sum(dim=dims, keepdim=True) / denom
     var = (torch.square(x - mean) * m).sum(dim=dims, keepdim=True) / denom
@@ -53,6 +76,7 @@ class DenseReluNorm(nn.Module):
         super().__init__()
         self.fc = nn.Linear(in_features, features)
         self.eps = eps
+        self.batch_stats = False
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -60,11 +84,16 @@ class DenseReluNorm(nn.Module):
         if mask is None:
             mask = torch.ones(x.shape[:-1], dtype=torch.bool,
                               device=x.device)
-        return masked_standardize(x, mask, self.eps)
+        return masked_standardize(x, mask, self.eps, self.batch_stats)
 
 
-def _moments(n_tot, sum_h, sum_h2, eps):
-    """(mean, 1/std) from row counts and first and second sums."""
+def _moments(n_tot, sum_h, sum_h2, eps, batch: bool):
+    """(mean, 1/std) from per-sample (B, C) row counts and first and
+    second sums; with ``batch`` the sums are pooled over the batch into
+    (1, C)."""
+    if batch:
+        n_tot, sum_h, sum_h2 = (t.sum(dim=0, keepdim=True)
+                                for t in (n_tot, sum_h, sum_h2))
     mean = sum_h / n_tot
     var = torch.clamp(sum_h2 / n_tot - torch.square(mean), min=0.0)
     inv = torch.reciprocal(torch.sqrt(var + eps))
@@ -80,6 +109,7 @@ class DenseReluNormVirtual(nn.Module):
         super().__init__()
         self.fc = nn.Linear(in_features, features)
         self.eps = eps
+        self.batch_stats = False
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor, z: torch.Tensor,
                 n_virtual: torch.Tensor
@@ -94,7 +124,7 @@ class DenseReluNormVirtual(nn.Module):
         mean, inv = _moments(
             n_tot, (h * m).sum(dim=1) + nv * hz,
             (torch.square(h) * m).sum(dim=1) + nv * torch.square(hz),
-            self.eps)
+            self.eps, self.batch_stats)
         return (h - mean[:, None]) * inv[:, None], (hz - mean) * inv
 
 
@@ -108,6 +138,7 @@ class DenseReluNormVirtualWeighted(nn.Module):
         super().__init__()
         self.fc = nn.Linear(in_features, features)
         self.eps = eps
+        self.batch_stats = False
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor, z: torch.Tensor,
                 w: torch.Tensor, zmask: torch.Tensor
@@ -123,7 +154,8 @@ class DenseReluNormVirtualWeighted(nn.Module):
             n_tot,
             (h * m).sum(dim=1) + (hz * wv).sum(dim=1),
             (torch.square(h) * m).sum(dim=1)
-            + (torch.square(hz) * wv).sum(dim=1), self.eps)
+            + (torch.square(hz) * wv).sum(dim=1), self.eps,
+            self.batch_stats)
         mean, inv = mean[:, None], inv[:, None]
         return (h - mean) * inv, (hz - mean) * inv
 
@@ -137,9 +169,11 @@ class ConvReluNorm(nn.Module):
         self.conv = nn.Conv2d(in_features, features, kernel, stride,
                               padding)
         self.eps = eps
+        self.batch_stats = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return standardize(torch.relu(self.conv(x)), self.eps)
+        return standardize(torch.relu(self.conv(x)), self.eps,
+                           batch=self.batch_stats)
 
 
 class DeconvReluNorm(nn.Module):
@@ -151,6 +185,8 @@ class DeconvReluNorm(nn.Module):
         self.deconv = nn.ConvTranspose2d(in_features, features, kernel,
                                          stride, padding)
         self.eps = eps
+        self.batch_stats = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return standardize(torch.relu(self.deconv(x)), self.eps)
+        return standardize(torch.relu(self.deconv(x)), self.eps,
+                           batch=self.batch_stats)

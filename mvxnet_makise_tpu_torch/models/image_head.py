@@ -91,6 +91,17 @@ def detection_transform(images: torch.Tensor,
     return x.to(images.dtype)
 
 
+@torch.no_grad()
+def fpn_pyramid(backbone: ResNet50FPN, images: torch.Tensor,
+                min_side: float = _MIN_SIZE) -> List[torch.Tensor]:
+    """(B, H, W, 3) images -> FPN levels 0..2 of the frozen ``backbone``,
+    each (B, Hf, Wf, 256) contiguous channels-last.  Detached: the
+    extractor is frozen."""
+    x = detection_transform(images, min_side)
+    x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    return [p.permute(0, 2, 3, 1).contiguous() for p in backbone(x)]
+
+
 class PointImageFusion(nn.Module):
     """768 -> 16 fusion MLP over points, with the empty sample slots as
     virtual rows in every layer's statistics (names fcn1, conv1, fcn2,
@@ -140,15 +151,10 @@ class PointImageHead(nn.Module):
         self.extractor = Extractor()
         self.fusion = PointImageFusion(768, eps)
 
-    @torch.no_grad()
     def pyramid(self, images: torch.Tensor) -> List[torch.Tensor]:
-        """(B, H, W, 3) images -> FPN levels 0..2, each (B, Hf, Wf, 256)
-        contiguous channels-last.  Detached: the extractor is frozen."""
-        x = detection_transform(images, self.image_min_side)
-        x = x.permute(0, 3, 1, 2).contiguous(
-            memory_format=torch.channels_last)
-        return [p.permute(0, 2, 3, 1).contiguous()
-                for p in self.extractor.backbone(x)]
+        """:func:`fpn_pyramid` of the extractor."""
+        return fpn_pyramid(self.extractor.backbone, images,
+                           self.image_min_side)
 
     def forward(self, images: torch.Tensor, points_rc: torch.Tensor,
                 point_mask: torch.Tensor, n_virtual: torch.Tensor):

@@ -6,11 +6,11 @@ Port of ``ColumnConv1ReluNorm``, ``MiddleConvLayersColumn``,
 The column CML's conv1 runs over the compacted active columns (one tap
 matmul, then K1 merges the taps with bias, ReLU and the statistics fused
 in).  The dense CML scatters the voxel rows into the (nz, nx, ny, C) grid
-(K4, or its plain version) and runs three ``F.conv3d``.  conv2, conv3 and
-the RPN are plain ``F.conv3d`` / ``nn.Conv2d`` / ``nn.ConvTranspose2d``, as
-they were XLA convolutions in JAX.  Convolutions run channels-first (B, C,
-D, H, W) with H = nx and W = ny; the RPN returns channels-last maps like
-JAX.
+(K4, or its plain version) and runs three ``F.conv3d``; ``make_cml``
+picks the form by ``cml_mode``.  conv2, conv3 and the RPN are plain
+``F.conv3d`` / ``nn.Conv2d`` / ``nn.ConvTranspose2d``, as they were XLA
+convolutions in JAX.  Convolutions run channels-first (B, C, D, H, W)
+with H = nx and W = ny; the RPN returns channels-last maps like JAX.
 """
 
 from __future__ import annotations
@@ -72,6 +72,7 @@ class ColumnConv1ReluNorm(nn.Module):
         self.conv = Conv3dParams(in_features, features)
         self.grid_shape = tuple(int(g) for g in grid_shape)
         self.eps = eps
+        self.batch_stats = False
 
     @property
     def d_out(self) -> int:
@@ -101,7 +102,10 @@ class ColumnConv1ReluNorm(nn.Module):
         B = out.shape[0]
         s = stats.sum(dim=1).reshape(B, 2, d_out, cout).sum(dim=2)
         n = nx * ny * d_out
-        mean = s[:, 0] / n                                    # (B, Cout)
+        if self.batch_stats:
+            # the frames' statistics pooled: K1 itself is per frame
+            s, n = s.sum(dim=0, keepdim=True), n * B
+        mean = s[:, 0] / n                        # (B, Cout) or (1, Cout)
         var = s[:, 1] / n - mean * mean
         x = out.reshape(B, nx, ny, d_out, cout)
         inv = torch.rsqrt(var + self.eps)
@@ -118,11 +122,13 @@ class Conv3dReluNorm(nn.Module):
         super().__init__()
         self.conv = Conv3dParams(in_features, features)
         self.stride, self.padding, self.eps = stride, padding, eps
+        self.batch_stats = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.conv3d(x, self.conv.weight, self.conv.bias, self.stride,
                      self.padding)
-        return standardize(torch.relu(y), self.eps, dims=(2, 3, 4))
+        return standardize(torch.relu(y), self.eps, dims=(2, 3, 4),
+                           batch=self.batch_stats)
 
 
 class MiddleConvLayersColumn(nn.Module):
@@ -185,6 +191,21 @@ class MiddleConvLayers(nn.Module):
         return self.conv3(self.conv2(self.conv1(x)))
 
 
+def make_cml(cml_mode: str, in_features: int, grid_shape: Sequence[int],
+             eps: float, scatter_backend: str) -> nn.Module:
+    """The CML ``cml_mode`` selects: "column" (K1) or "dense3d" (the
+    grid scatter, K4 under ``scatter_backend="pallas"``).  "banded",
+    JAX's ``MiddleConvLayersBanded``, is the dense CML's conv1 in a
+    depth-banded layout on the same parameters: it computes the column
+    CML's function, and builds as the column CML."""
+    if cml_mode in ("column", "banded"):
+        return MiddleConvLayersColumn(in_features, grid_shape, eps)
+    if cml_mode == "dense3d":
+        return MiddleConvLayers(in_features, grid_shape, eps,
+                                scatter_backend)
+    raise ValueError(f"unknown cml_mode {cml_mode!r}")
+
+
 class RPN(nn.Module):
     """Region proposal network: 3 stride-2 conv stages, 3 deconvs back to
     full resolution, concatenated, then 1x1 score/box heads.  Input
@@ -211,14 +232,18 @@ class RPN(nn.Module):
         self.deconv3 = DeconvReluNorm(ch3, dch, 4, 4, 0, eps)
         self.cls = nn.Conv2d(3 * dch, anchors_per_loc, 1)
         self.reg = nn.Conv2d(3 * dch, anchors_per_loc * box_dim, 1)
+        self.batch_stats = False
 
     def forward(self, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Samples run one at a time, which computes the same function
-        (every norm is per sample): at the default grid, cuDNN's
-        heuristics pick an FFT algorithm for blk1's batched 128-channel
-        3x3 convolutions that is several times slower than batch-1 calls
-        (PERF.md)."""
+        under per-sample norms: at the default grid, cuDNN's heuristics
+        pick an FFT algorithm for blk1's batched 128-channel 3x3
+        convolutions that is several times slower than batch-1 calls
+        (PERF.md).  Batch-wide norms (``batch_stats``) take the batch in
+        one call."""
+        if self.batch_stats:
+            return self.forward_one(x)
         maps = [self.forward_one(x[i:i + 1]) for i in range(x.shape[0])]
         return (torch.cat([m[0] for m in maps]),
                 torch.cat([m[1] for m in maps]))

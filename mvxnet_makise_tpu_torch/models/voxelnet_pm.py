@@ -1,14 +1,17 @@
 """Point-major VoxelNet branch: the VFE stack over real points only.
 
 Port of ``mvxnet_makise_tpu/models/voxelnet_pm.py`` with ``cml_mode``
-"column" (the default) or "dense3d" (``scatter_backend`` "pallas" runs
-K4).  Pointwise layers run over the voxel-sorted point
-list, per-voxel max-pooling is a segment max (``scatter_reduce`` amax),
-and the empty sample slots of each voxel — all holding the same row —
-enter the statistics and the max in closed form with multiplicity
-``T - count_v`` (``blocks.DenseReluNormVirtualWeighted``).  ``remat``
-recomputes the CML in the backward pass instead of keeping its
-activations (``nn.remat`` in JAX, ``torch.utils.checkpoint`` here).
+"column" (the default; "banded" builds it too, ``voxelnet.make_cml``) or
+"dense3d" (``scatter_backend`` "pallas" runs K4).  It is also the port of
+JAX's slot-major ``VoxelNetBranch``, which computes the same function on
+the same parameter tree over the (V, T, C) slot tensor.  Pointwise layers
+run over the voxel-sorted point list, per-voxel max-pooling is a segment
+max (``scatter_reduce`` amax), and the empty sample slots of each voxel —
+all holding the same row — enter the statistics and the max in closed
+form with multiplicity ``T - count_v``
+(``blocks.DenseReluNormVirtualWeighted``).  ``remat`` recomputes the CML
+in the backward pass instead of keeping its activations (``nn.remat`` in
+JAX, ``torch.utils.checkpoint`` here).
 """
 
 from __future__ import annotations
@@ -26,8 +29,7 @@ from mvxnet_makise_tpu_torch.models.blocks import (
 from mvxnet_makise_tpu_torch.models.voxelnet import (
     REFERENCE_RPN_TRUNK,
     RPN,
-    MiddleConvLayers,
-    MiddleConvLayersColumn,
+    make_cml,
 )
 
 _NEG = -1e30
@@ -58,7 +60,7 @@ def _take_per_point(per_voxel: torch.Tensor,
     return torch.gather(padded, 1, idx)
 
 
-def _segment_sum(values: torch.Tensor, seg: torch.Tensor,
+def segment_sum(values: torch.Tensor, seg: torch.Tensor,
                  kept: torch.Tensor, counts: torch.Tensor,
                  samples_per_voxel: int) -> torch.Tensor:
     """Per-voxel sum over kept points, (B, P, C) -> (B, V, C).
@@ -93,7 +95,7 @@ def point_lidar_features(sorted_points: torch.Tensor,
     over its kept points.  sorted_points (B, P, 6); seg/kept (B, P);
     counts (B, V), each at most ``samples_per_voxel``."""
     xyz = sorted_points[..., :3]
-    sums = _segment_sum(xyz, sorted_seg, sorted_kept, counts,
+    sums = segment_sum(xyz, sorted_seg, sorted_kept, counts,
                         samples_per_voxel)
     centroid = sums / torch.clamp(counts, min=1)[..., None].to(xyz.dtype)
     offs = xyz - _take_per_point(centroid, sorted_seg)
@@ -141,9 +143,25 @@ class PointSVFE(nn.Module):
         return self.vfe2(x, kept, seg, z, nv, vmask)
 
 
+def voxel_features(svfe: PointSVFE, fcn: DenseReluNormVirtualWeighted,
+                   samples_per_voxel: int, points, kept, seg, counts,
+                   vmask, z0=None) -> torch.Tensor:
+    """Per-voxel 128-channel features (B, V, 128) of the VFE stack
+    ``svfe`` and the dense layer ``fcn``, max-pooled over each voxel's
+    ``samples_per_voxel`` slots; dead voxels 0.  z0: (B, V, C_in)
+    empty-slot input rows (None = zeros)."""
+    T = samples_per_voxel
+    nv = torch.clamp(T - counts, 0, T).to(points.dtype) * vmask
+    z = z0 if z0 is not None else points.new_zeros(
+        (*counts.shape, points.shape[-1]))
+    x, z = svfe(points, kept, seg, z, nv, vmask)
+    h, hz = fcn(x, kept, z, nv, vmask)
+    return _voxel_max(h, hz, seg, kept, nv, vmask)
+
+
 class VoxelNetBranchPM(nn.Module):
     """Point-major LiDAR branch: VFE stack, per-voxel pooling, CML
-    (``cml_mode`` "column" or "dense3d"; "banded" is not ported), RPN."""
+    (``cml_mode``, ``voxelnet.make_cml``), RPN."""
 
     def __init__(self, in_features: int = 23,
                  grid_shape: Sequence[int] = (352, 400, 10),
@@ -157,29 +175,14 @@ class VoxelNetBranchPM(nn.Module):
         self.remat = remat
         self.svfe = PointSVFE(in_features, eps)
         self.fcn = DenseReluNormVirtualWeighted(128, 128, eps)
-        if cml_mode == "column":
-            self.cml = MiddleConvLayersColumn(128, grid_shape, eps)
-        elif cml_mode == "dense3d":
-            self.cml = MiddleConvLayers(128, grid_shape, eps,
-                                        scatter_backend)
-        elif cml_mode == "banded":
-            raise NotImplementedError(
-                "cml_mode='banded' is not ported; use 'column' or "
-                "'dense3d'")
-        else:
-            raise ValueError(f"unknown cml_mode {cml_mode!r}")
+        self.cml = make_cml(cml_mode, 128, grid_shape, eps, scatter_backend)
         self.rpn = RPN(64 * 2, anchors_per_loc, box_dim, eps, rpn_trunk)
         self._cml_tensors = [n for n, _ in self.cml.named_parameters()]
 
     def voxel_features(self, points, kept, seg, counts, vmask, z0=None):
         """Per-voxel 128-channel features (B, V, 128), dead voxels 0."""
-        T = self.samples_per_voxel
-        nv = torch.clamp(T - counts, 0, T).to(points.dtype) * vmask
-        z = z0 if z0 is not None else points.new_zeros(
-            (*counts.shape, points.shape[-1]))
-        x, z = self.svfe(points, kept, seg, z, nv, vmask)
-        h, hz = self.fcn(x, kept, z, nv, vmask)
-        return _voxel_max(h, hz, seg, kept, nv, vmask)
+        return voxel_features(self.svfe, self.fcn, self.samples_per_voxel,
+                              points, kept, seg, counts, vmask, z0)
 
     def run_cml(self, vfeat: torch.Tensor, coords: torch.Tensor,
                 vmask: torch.Tensor) -> torch.Tensor:

@@ -4,9 +4,11 @@ tree.
 :func:`load_jax_params` writes the JAX package's Flax parameters (nested
 dicts of numpy arrays, e.g. ``jax.device_get(state.params)`` from
 ``mvxnet_makise_tpu.train.loop.build_model_and_state``) into an
-:class:`~mvxnet_makise_tpu_torch.models.mvxnet.MVXNetPM`, or into one of
-its parts given that part's own subtree, so both packages compute the
-same function.  Layout facts:
+:class:`~mvxnet_makise_tpu_torch.models.mvxnet.MVXNetPM` (the tree of
+JAX's ``MVXNetPM``, ``MVXNet`` or ``MVXNetPointFusion``), an
+:class:`~mvxnet_makise_tpu_torch.models.mvxnet.MVXNetVoxelFusion`, or one
+of their parts given that part's own subtree, so both packages compute
+the same function.  Layout facts:
 
 * Dense kernel (in, out)   -> Linear weight (out, in)
 * Conv kernel HWIO         -> Conv2d weight OIHW
@@ -26,7 +28,7 @@ import torch
 from torch import nn
 
 from mvxnet_makise_tpu_torch.models.image_head import PointImageHead
-from mvxnet_makise_tpu_torch.models.mvxnet import MVXNetPM
+from mvxnet_makise_tpu_torch.models.mvxnet import MVXNetPM, MVXNetVoxelFusion
 from mvxnet_makise_tpu_torch.models.resnet_fpn import ResNet50FPN
 from mvxnet_makise_tpu_torch.models.voxelnet import RPN, Conv3dParams
 from mvxnet_makise_tpu_torch.models.voxelnet_pm import VoxelNetBranchPM
@@ -175,8 +177,21 @@ def mvxnet_state(p: Mapping) -> StateDict:
     return sd
 
 
+def voxel_fusion_state(p: Mapping) -> StateDict:
+    """JAX ``MVXNetVoxelFusion`` tree -> :class:`MVXNetVoxelFusion`
+    state: the LiDAR branch's svfe, fcn, cml and rpn at the root, beside
+    the extractor and the three fusion layers."""
+    sd = lidar_branch_state(p)
+    sd.update({"extractor." + k: v
+               for k, v in resnet_fpn_state(p["extractor"]).items()})
+    for name in ("imfuse1", "imfuse2", "mix"):
+        _dense(sd, f"{name}.fc", p[name]["fc"])
+    return sd
+
+
 _STATE_OF: Dict[type, Callable[[Mapping], StateDict]] = {
     MVXNetPM: mvxnet_state,
+    MVXNetVoxelFusion: voxel_fusion_state,
     PointImageHead: image_head_state,
     ResNet50FPN: resnet_fpn_state,
     VoxelNetBranchPM: lidar_branch_state,
@@ -191,11 +206,11 @@ def _count_leaves(tree: Mapping) -> int:
 
 @torch.no_grad()
 def load_jax_params(model: nn.Module, params: Mapping[str, Any]) -> None:
-    """Copy a JAX parameter tree into ``model``: an :class:`MVXNetPM`
-    with the whole model's tree, or a :class:`PointImageHead`,
-    :class:`ResNet50FPN`, :class:`VoxelNetBranchPM` or :class:`RPN` with
-    the tree of its JAX counterpart.  Every parameter of the model must
-    be covered and every leaf of the tree used."""
+    """Copy a JAX parameter tree into ``model``: an :class:`MVXNetPM` or
+    :class:`MVXNetVoxelFusion` with the whole model's tree, or a
+    :class:`PointImageHead`, :class:`ResNet50FPN`, :class:`VoxelNetBranchPM`
+    or :class:`RPN` with the tree of its JAX counterpart.  Every parameter
+    of the model must be covered and every leaf of the tree used."""
     p = params["params"] if "params" in params else params
     convert = _STATE_OF.get(type(model))
     if convert is None:

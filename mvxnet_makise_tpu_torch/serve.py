@@ -4,8 +4,12 @@ Port of ``mvxnet_makise_tpu/serve.py``'s ``Detector``.  The device path
 per batch is voxelize -> image branch (ResNet50-FPN, K2 gather, fusion
 MLP) -> point-major LiDAR branch (K1 column merge in the CML) -> RPN ->
 decode -> rotated NMS (the LiDAR-only detector, ``with_images=False``,
-skips the image branch).  Host work per frame is the C++
-crop+project+shuffle+pad (``data/native.assemble_frame``).  Under
+skips the image branch; ``fusion_mode="voxel"`` encodes the voxels from
+LiDAR first and gathers one image feature per voxel).  Host work per
+frame is the C++ crop+project+shuffle+pad (``data/native.assemble_frame``).
+:meth:`Detector.detect_stream` assembles the next batch on a feed thread
+while the device runs the current one, and yields each batch's
+detections once they are read back.  Under
 ``cfg.use_bf16`` the model runs on bfloat16 copies of its parameters,
 cast once when the detector is made and again by :meth:`Detector.set_params`
 (JAX's serving casts them once per weight set too); the points stay
@@ -13,7 +17,11 @@ float32.
 
 PyTorch compiles nothing per batch size, so no request is padded to a
 pooled batch size; :meth:`Detector.warm` builds the CUDA kernels and runs
-one batch of each size ahead of the first request instead.
+one batch of each size ahead of the first request instead.  Under
+``norm_scope="batch"`` the norms pool their statistics over the batch, so
+a frame's detections depend on the other frames served with it: JAX's
+semantics.  The batch is served as given (JAX pads only to a batch size
+it has compiled already, which the port has no need of).
 
 Example:
     det = Detector.create(cfg, checkpoint_epoch=10)   # on the CUDA card
@@ -101,9 +109,10 @@ class Detector:
                seed: int = 0, device: DeviceLike = None,
                with_images: bool = True, **kw) -> "Detector":
         """A detector on ``device`` (default: the CUDA card) with the
-        weights of ``state_dict`` (an ``MVXNetPM`` state dict, or the
-        LiDAR-only ``VoxelNetBranchPM``'s with ``with_images=False``) when
-        given;
+        weights of ``state_dict`` (a state dict of the model
+        ``models.mvxnet.build_model`` builds for ``cfg``, e.g.
+        ``MVXNetPM``'s, or the LiDAR-only ``VoxelNetBranchPM``'s with
+        ``with_images=False``) when given;
         else those of epoch ``checkpoint_epoch``'s checkpoint in
         ``cfg.checkpoint_dir`` (``train/checkpoint``), the latest epoch
         there when ``checkpoint_epoch`` is None; else (0, or no
@@ -222,34 +231,35 @@ class Detector:
 
         ``frames`` is any iterable of (points, calib, image-or-None).
         Batch i+1 is assembled on a feed thread while batch i runs on the
-        device (:meth:`stream_batches`), so host and device work
-        overlap; the last batch holds what is left."""
-        def assembled():
-            it = iter(frames)
+        device, so the host feed and the device overlap; batch i's
+        detections are yielded as soon as they are read back, without
+        waiting for batch i+1 to run.  The last batch holds what is
+        left."""
+        it = iter(frames)
 
-            def next_batch():
-                buf = list(itertools.islice(it, batch_size))
-                return (*self.assemble(buf), len(buf)) if buf else None
+        def next_batch():
+            buf = list(itertools.islice(it, batch_size))
+            return self.assemble(buf) if buf else None
 
-            with ThreadPoolExecutor(max_workers=1,
-                                    thread_name_prefix="feed") as feed:
+        with ThreadPoolExecutor(max_workers=1,
+                                thread_name_prefix="feed") as feed:
+            pending = feed.submit(next_batch)
+            while True:
+                batch = pending.result()
+                if batch is None:
+                    return
                 pending = feed.submit(next_batch)
-                while True:
-                    batch = pending.result()
-                    if batch is None:
-                        return
-                    pending = feed.submit(next_batch)
-                    yield batch
-
-        yield from self.stream_batches(assembled(), batch_size)
+                yield from self.detect_batch(*batch)
 
     def stream_batches(self, batches: Iterable, batch_size: int):
-        """The core of :meth:`detect_stream`: consumes pre-assembled
-        ``(points, num_points, images, n_real)`` batches (numpy arrays or
-        tensors, at most ``batch_size`` rows, the first ``n_real`` real)
-        and yields ``n_real`` :class:`FrameDetections` per batch, in order.
-        Batch i+1 is dispatched (uploaded, run and decoded on the device)
-        before batch i's detections are read back."""
+        """Throughput loop over pre-assembled ``(points, num_points,
+        images, n_real)`` batches (numpy arrays or tensors, at most
+        ``batch_size`` rows, the first ``n_real`` real): yields ``n_real``
+        :class:`FrameDetections` per batch, in order.  Batch i+1 is
+        dispatched (uploaded, run and decoded on the device) before batch
+        i's detections are read back, as JAX's loop does, so every batch
+        waits one batch for its read-back (``tools.bench`` times this
+        loop; :meth:`detect_stream` does not defer)."""
         prev = None
         for points, num_points, images, n_real in batches:
             rows = len(points)

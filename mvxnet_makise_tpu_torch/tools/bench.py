@@ -20,20 +20,22 @@ false.  The configuration is ``Config(use_bf16=True, batch_size=8)``: the
 reference's model (``image_min_side`` 800, the reference RPN trunk) in
 bfloat16; ``--image-min-side``, ``--rpn`` and ``--batch`` change it, and
 ``--config FILE`` runs a configuration as written (e.g.
-``configs/serving_economy.yaml``; the flags still override it).  The line
+``configs/serving_economy.yaml``; the flags still override it), and
+``--norm-scope batch`` pools the norms' statistics over the batch.  The line
 names the card and its power limit.  There is no ``vs_baseline``: the
 port has no target rate.
 
 The measurement runs in a supervised child (``utils/watchdog``): each
 stage has its own time budget, a measured raw rate is kept as a partial,
 a failed child is retried once, and the parent prints one line and exits
-nonzero unless the child finished.  Flags whose formulation the port
-does not have are refused.
+nonzero unless the child finished.  ``--gather-backend`` and
+``--fusion-stats`` are refused: they pick JAX layouts of the one function
+the port computes.
 
 Run: python -m mvxnet_makise_tpu_torch.tools.bench [--batch N] [--iters N]
          [--warmup N] [--lidar-only] [--raw-only] [--train]
          [--config FILE] [--image-min-side S] [--rpn NAME]
-         [--device cuda|cpu]
+         [--norm-scope sample|batch] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -61,11 +63,10 @@ _MODE_STAGES = {"train": ("setup", "train_warmup", "train_measure"),
                 "raw": ("setup", "raw_warmup", "raw_measure"),
                 "e2e": ("setup", "raw_warmup", "raw_measure", "serve_setup",
                         "serve_warmup", "serve_measure")}
-# refused flags: the ROADMAP item that would bring each formulation
-_NORM_SCOPE_ITEM = "ROADMAP queue 1: norm_scope='batch'"
-_FORMULATION_ITEM = ("ROADMAP queue 1: the other fusion and CML modes "
-                     "(JAX's gather and fusion-statistics formulations are "
-                     "layouts of the one function the port computes)")
+# why the JAX layout flags are refused
+_ONE_FUNCTION = ("JAX's gather backends and fusion-statistics formulations "
+                 "are layouts of one function, which the port computes "
+                 "with K2 and one fusion MLP")
 
 
 def _metric_name(args) -> str:
@@ -109,8 +110,8 @@ def parse_args(argv=None):
                          "the Config's, the reference trunk)")
     ap.add_argument("--norm-scope", default="",
                     choices=["", "sample", "batch"],
-                    help="'batch' is refused: the port's norms are per "
-                         "sample")
+                    help="override Config.norm_scope (statistics per "
+                         "sample or over the batch)")
     ap.add_argument("--gather-backend", default="",
                     help="refused: the port has one FPN gather (K2)")
     ap.add_argument("--fusion-stats", default="",
@@ -124,12 +125,12 @@ def parse_args(argv=None):
     ap.add_argument("--child", action="store_true",
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    if args.norm_scope == "batch":
-        ap.error(f"--norm-scope batch is not in the port ({_NORM_SCOPE_ITEM})")
     if args.gather_backend:
-        ap.error(f"--gather-backend is not in the port ({_FORMULATION_ITEM})")
+        ap.error(f"--gather-backend selects nothing in the port: "
+                 f"{_ONE_FUNCTION}")
     if args.fusion_stats:
-        ap.error(f"--fusion-stats is not in the port ({_FORMULATION_ITEM})")
+        ap.error(f"--fusion-stats selects nothing in the port: "
+                 f"{_ONE_FUNCTION}")
     if args.train and args.raw_only:
         ap.error("--train and --raw-only are two modes: pick one")
     return args
@@ -150,6 +151,8 @@ def bench_config(args):
         over["image_min_side"] = args.image_min_side
     if args.rpn is not None:
         over.update(rpn_fields(args.rpn))
+    if args.norm_scope:
+        over["norm_scope"] = args.norm_scope
     if args.config:
         if not os.path.exists(args.config):
             raise FileNotFoundError(f"no configuration file {args.config}")
@@ -224,6 +227,7 @@ def child(args) -> int:
               "warmup": args.warmup, "use_bf16": cfg.use_bf16,
               "image_min_side": cfg.image_min_side,
               "rpn": rpn_name(cfg.rpn_trunk), "config": args.config,
+              "norm_scope": cfg.norm_scope,
               "upload_excluded": False, **card(device)}
 
     if args.train:

@@ -7,7 +7,9 @@ Port of ``mvxnet_makise_tpu/tools/export_checkpoint.py``.  The export is
 host work on the checkpoint's tensors: no model is built and no device is
 used.  Whether the checkpoint holds the fused or the LiDAR-only detector
 is read from its keys; ``--lidar-only`` is accepted for the JAX tool's
-command line and changes nothing.
+command line and changes nothing.  A VoxelFusion checkpoint
+(``fusion_mode: voxel``) is refused: the reference has no such model, and
+its tree has no ``head`` or ``backbone`` for the reference's layout.
 
 Usage: python -m mvxnet_makise_tpu_torch.tools.export_checkpoint
            [-r EPOCH] [--lidar-only] [-o out.pkl] [--checkpoint-dir DIR]
@@ -42,6 +44,11 @@ def main(argv=None) -> int:
     if not epoch:
         p.error(f"no checkpoint found in {args.checkpoint_dir}")
     state = ckpt.model_state(args.checkpoint_dir, epoch)
+    if any(k.startswith("imfuse1.") for k in state):
+        p.error(f"epoch {epoch} holds a VoxelFusion model (fusion_mode "
+                f"'voxel'): the reference has no such model, and its "
+                f"layout needs the 'head' and 'backbone' of a PointFusion "
+                f"or LiDAR-only checkpoint")
     fused = any(k.startswith("head.") for k in state)
     sd = export_reference_checkpoint(state, with_images=fused)
     torch.save(sd, args.output)

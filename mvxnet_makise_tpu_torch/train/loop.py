@@ -48,7 +48,10 @@ from mvxnet_makise_tpu_torch.device import (
 )
 from mvxnet_makise_tpu_torch.eval import runner
 from mvxnet_makise_tpu_torch.geometry.calib import lidar_to_image
-from mvxnet_makise_tpu_torch.models.mvxnet import build_model
+from mvxnet_makise_tpu_torch.models.mvxnet import (
+    build_model,
+    image_extractor,
+)
 from mvxnet_makise_tpu_torch.models.resnet_fpn import (
     load_torchvision_fpn_weights,
 )
@@ -130,7 +133,7 @@ def build_model_and_state(cfg: Config, device: DeviceLike = None,
     model = build_model(cfg, seed=seed, device=device,
                         with_images=with_images).train()
     if image_weights is not None and with_images:
-        model.head.extractor.backbone.load_state_dict(
+        image_extractor(model).load_state_dict(
             load_torchvision_fpn_weights(image_weights), strict=True)
     return model, TrainState.create(cfg, model)
 

@@ -98,6 +98,16 @@ def test_a_failing_child_exits_nonzero(tiny_yaml):
     assert "unknown RPN trunk" in err
 
 
+def test_train_under_batch_scope_prints_one_json_line(tiny_yaml):
+    """``--train --norm-scope batch``: JAX's A/B of the norms' scope."""
+    rc, line, err = _bench("--config", tiny_yaml, "--device", "cpu",
+                           "--iters", "2", "--warmup", "1", "--train",
+                           "--norm-scope", "batch")
+    assert rc == 0, err[-2000:]
+    assert line["metric"] == _root_metric_name(train=True)
+    assert line["value"] > 0 and line["norm_scope"] == "batch"
+
+
 def test_defaults_are_the_reference_model():
     args = bench.parse_args([])
     cfg = bench.bench_config(args)
@@ -115,14 +125,31 @@ def test_defaults_are_the_reference_model():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--norm-scope", "batch"], "norm_scope"),
-    (["--gather-backend", "raw4"], "fusion and CML modes"),
-    (["--fusion-stats", "full"], "fusion and CML modes")])
+    (["--gather-backend", "raw4"], "gather-backend"),
+    (["--fusion-stats", "full"], "fusion-stats")])
 def test_flags_without_a_formulation_are_refused(flags, item, capsys):
+    """JAX's layout flags are refused with the reason: the port computes
+    the one function they all compute."""
     with pytest.raises(SystemExit) as e:
         bench.parse_args(flags)
     assert e.value.code != 0
-    assert "ROADMAP" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert item in err and "one function" in err and "K2" in err
+    assert "ROADMAP" not in err
+
+
+@pytest.mark.parametrize("scope", ["sample", "batch"])
+def test_norm_scope_reaches_the_config(scope):
+    """``--norm-scope`` sets ``Config.norm_scope``, as JAX's bench.py
+    does; without it the Config's default (or the --config file's)
+    stays."""
+    cfg = bench.bench_config(bench.parse_args(["--norm-scope", scope]))
+    assert cfg.norm_scope == scope
+    assert bench.bench_config(bench.parse_args([])).norm_scope == "sample"
+    econ = bench.bench_config(bench.parse_args(
+        ["--config", os.path.join(ROOT, "configs", "serving_economy.yaml"),
+         "--norm-scope", scope]))
+    assert econ.norm_scope == scope and econ.image_min_side == 400.0
 
 
 # -- the supervisor and the stage watchdog (the port's copy) --------------

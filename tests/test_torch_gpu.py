@@ -608,6 +608,36 @@ def test_detector_on_card_matches_cpu(cuda):
         d.close()
 
 
+def test_voxel_fusion_on_card_matches_cpu(cuda):
+    """``fusion_mode="voxel"``: the card's float32 maps within 10x the
+    CPU's float32 distance from a float64 CPU run of the same weights;
+    K1 and K2 launched once per batch served."""
+    cfg = TINY.replace(fusion_mode="voxel")
+    gpu = Detector.create(cfg, checkpoint_epoch=0, seed=3, device=cuda)
+    weights = {k: v.cpu() for k, v in gpu.model.state_dict().items()}
+    cpu = Detector.create(cfg, state_dict=weights, device="cpu")
+    ref = build_model(cfg, seed=None, device="cpu")
+    ref.load_state_dict(weights)
+    ref = Detector(cfg, ref.double())
+    rng = np.random.default_rng(1)
+    frames = [synthetic_frame(rng, cfg, num_cars=2, num_points=1200)[:3]
+              for _ in range(3)]
+    arrays = cpu.assemble(frames)
+    want = _maps(ref, arrays)
+    for g, c, w in zip(_maps(gpu, arrays), _maps(cpu, arrays), want):
+        assert _dist(g, w) <= max(10 * _dist(c, w), 1e-6)
+    column_merge.KERNEL.launches = gather.KERNEL.launches = 0
+    served = gpu.detect_frames(frames)
+    streamed = list(gpu.detect_stream(frames, batch_size=2))
+    assert column_merge.KERNEL.launches == gather.KERNEL.launches == 3
+    assert len(streamed) == len(frames)
+    for d in served:
+        assert d.boxes.shape == (len(d.scores), 7)
+        assert np.isfinite(d.boxes).all()
+    for d in (gpu, cpu, ref):
+        d.close()
+
+
 def _train_batch(cfg, device, dtype=torch.float32):
     """Two synthetic frames with axis-aligned cars (so the regression
     head has positives) as a batch on ``device``, fixed shuffle."""

@@ -3,8 +3,9 @@
 ``stream_batches`` consumes pre-assembled batches and yields ``n_real``
 detections per batch, in order (a padded short last batch included),
 equal to ``detect_batch`` on the same arrays and to ``detect_frames``;
-``detect_stream``, now built on it, still equals ``detect_frames`` frame
-for frame; ``set_params`` swaps the weights of a live detector, in
+``detect_stream`` still equals ``detect_frames`` frame for frame, and
+yields each batch's detections once that batch is read back, before the
+next batch runs; ``set_params`` swaps the weights of a live detector, in
 float32 and under ``use_bf16`` (whose bfloat16 copies must be cast again),
 so that it serves exactly what a fresh ``Detector`` on the new weights
 serves.
@@ -91,6 +92,26 @@ def test_detect_stream_equals_detect_frames(det, frames):
     for i in range(0, len(frames), 2):
         want = det.detect_frames(frames[i:i + 2])
         assert all(_same(g, w) for g, w in zip(streamed[i:i + 2], want))
+
+
+def test_detect_stream_yields_a_batch_once_it_is_read_back(det, frames,
+                                                          monkeypatch):
+    """Batch 0's frames come out while ``run_batch`` has run once: the
+    stream holds no batch back for the next one."""
+    calls = []
+    run_batch = det.run_batch
+
+    def counted(*args):
+        calls.append(len(args[0]))
+        return run_batch(*args)
+    monkeypatch.setattr(det, "run_batch", counted)
+    stream = det.detect_stream(iter(frames), batch_size=2)
+    first = [next(stream), next(stream)]
+    assert calls == [2]
+    rest = list(stream)
+    assert calls == [2, 2, 1] and len(rest) == 3
+    want = det.detect_frames(frames[:2])
+    assert all(_same(g, w) for g, w in zip(first, want))
 
 
 @pytest.mark.parametrize("use_bf16", [False, True], ids=["float32", "bf16"])
