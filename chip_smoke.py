@@ -122,6 +122,32 @@ Phases, each printed as one JSON line:
     configs/serving_economy.yaml``, at BENCH_ITERS iterations: each exits
     0 with a last line whose ``value`` is positive; with ``--rpn
     no-such-trunk`` it must exit nonzero.
+18. ``parallel``: ``parallel.initialize_distributed`` starts a world of
+    one NCCL rank (a FileStore in a temporary directory) and
+    ``make_mesh((1, 1))`` a ('data', 'model') mesh; ``Detector(mesh=...)``
+    serves the default ``Config`` at full width (batch 4, 8 frames,
+    ``detect_frames`` and ``detect_stream``) with detections bit-equal to
+    the meshless Detector's; one mesh train step
+    (``make_train_step(mesh=...)``) against two plain steps under
+    PyTorch's deterministic algorithms: its loss and parameters no further
+    from the plain step's than the two plain steps are from each other
+    (0: bit for bit); a profiler window over a mesh step shows NCCL; ms per
+    frame and per step with and without the mesh, in turns; the kernels'
+    counts set to 0 just before the mesh serving and the mesh step.
+19. ``tools``: ``tools.bench_host``, ``tools.profile_components --batch 4
+    --iters 3`` and ``tools.profile_train --batch 4 --iters 2`` as
+    subprocesses, each exiting 0 and printing every stage of its JAX
+    counterpart; ``utils.profiling.trace_context`` around one
+    ``detect_frames`` writes a trace that names K1's and K2's kernels.
+
+K2's backward (``fpn_gather_bwd``, plain PyTorch: JAX's is an XLA
+scatter-add, no Pallas kernel) runs in the kernel phases beside K2, in
+float32 on the default ``Config``'s arguments and in bfloat16 on
+``full_fusion.yaml``'s: the levels' gradient through ``fpn_gather`` (the
+forward the kernel) against autograd through the plain version (float32)
+or the same formula summed in float32 (bfloat16, one bfloat16 step), no
+gradient for the points, its time beside its bytes bound; its records
+print under the ``kernels`` line's ``"plain"`` key.
 
 The kernel phases run each kernel in float32 and, for K1, K1's backward,
 K3, K3's backward and K2, again in bfloat16 (``*_bf16`` records) on the
@@ -134,7 +160,8 @@ bias and hold the output bit-equal to the float32 sum rounded once
 (pre and dbias) and K3's gather of pre apart, each beside its own bound.
 Then a ``kernels`` line (each record with its launches on the main path
 and on the later paths: ``kitti``, ``lidar_only``, ``fusion_modes``
-serving and training, ``norm_scope``), the card's name and power limit,
+serving and training, ``norm_scope``, ``parallel`` serving and
+training), the card's name and power limit,
 and last
 ``{"ok": true, "device": {...}}``.  Any failed phase exits nonzero before
 that line.  Without a CUDA device the script exits nonzero and prints no
@@ -2701,7 +2728,406 @@ def phase_kernels_bf16(device) -> list:
             phase_column_merge_bwd(merge_args, cfg.voxel_shape,
                                    "column_merge_bwd_bf16"),
             *phase_merge_taps(merge_args, cfg.voxel_shape, "_bf16"),
-            phase_fpn_gather(gather_args, eps, swapped, "fpn_gather_bf16")]
+            phase_fpn_gather(gather_args, eps, swapped, "fpn_gather_bf16"),
+            phase_fpn_gather_bwd(gather_args, eps, swapped,
+                                 "fpn_gather_bwd_bf16")]
+
+
+# ------------------------------------------------------------- parallel
+
+
+def mesh_step_inputs(cfg, device):
+    """One training batch of BATCH synthetic frames (fixed shuffle) as a
+    ``train.step.Batch`` on ``device``, and the anchors."""
+    import torch
+
+    from mvxnet_makise_tpu_torch.ops.assign import create_anchors
+    from mvxnet_makise_tpu_torch.train.step import frames_to_batch
+
+    pts, nums, imgs, gts, gms, gcs, perm = fixed_batch(
+        cfg, make_train_frames(cfg, BATCH, seed=3), device)
+    batch = frames_to_batch(pts, nums, imgs, cfg, gt_boxes=gts,
+                            gt_mask=gms, gt_classes=gcs, perm=perm)
+    anchors = torch.from_numpy(create_anchors(
+        cfg.feature_map_shape, cfg.velo_range, cfg.anchor_sizes)).to(device)
+    return batch, anchors
+
+
+def nccl_evidence(prof) -> dict:
+    """Events of a ``torch.profiler`` window that name NCCL: device
+    kernels and host-side collective calls."""
+    from torch.autograd import DeviceType
+
+    kernels, calls = set(), set()
+    for e in prof.events():
+        if "nccl" not in e.name.lower():
+            continue
+        (kernels if e.device_type == DeviceType.CUDA else calls).add(
+            e.name[:80])
+    return {"device_kernels": sorted(kernels), "host_calls": sorted(calls)}
+
+
+def phase_parallel(device, kernels):
+    """The slice's main path: the default Config served and trained
+    through a ('data', 'model') mesh of one NCCL rank
+    (``parallel.initialize_distributed``, ``make_mesh((1, 1))``).
+    ``Detector(mesh=...)`` serves FRAMES frames in batches of BATCH,
+    detections bit-equal to the meshless Detector's; one mesh train step
+    (``make_train_step(mesh=...)``) gives the plain step's loss and
+    parameters (held to the plain step's own run-to-run distance, 0 under
+    cuDNN's deterministic algorithms); a profiler window over a mesh step
+    shows NCCL; the kernels' counts are set to 0 just before the mesh
+    serving and the mesh step and read just after; ms per frame and per
+    step with and without the mesh, in turns."""
+    import copy
+    import tempfile
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from mvxnet_makise_tpu_torch.config import Config
+    from mvxnet_makise_tpu_torch.models.mvxnet import build_model
+    from mvxnet_makise_tpu_torch.parallel import make_mesh, shard_params
+    from mvxnet_makise_tpu_torch.parallel.distributed import (
+        initialize_distributed,
+        is_primary,
+    )
+    from mvxnet_makise_tpu_torch.serve import Detector
+    from mvxnet_makise_tpu_torch.train.state import TrainState
+    from mvxnet_makise_tpu_torch.train.step import make_train_step
+
+    cfg = Config(**FULL_OVERRIDES)
+    store = tempfile.mkdtemp(prefix="mesh_store_")
+    started = initialize_distributed(
+        f"file://{store}/store", 1, 0, device=device,
+        timeout=timedelta(seconds=300))
+    try:
+        mesh = make_mesh((1, 1))
+        frames = make_frames(cfg, FRAMES, seed=0)
+        plain = Detector.create(cfg, checkpoint_epoch=0, seed=0,
+                                device=device)
+        meshed = Detector.create(cfg, checkpoint_epoch=0, seed=0,
+                                 device=device, mesh=mesh)
+        plain.warm((BATCH,))
+        meshed.warm((BATCH,))
+        for k in kernels:
+            k.launches = 0
+        got = meshed.detect_frames(frames[:BATCH])
+        streamed = list(meshed.detect_stream(frames, batch_size=BATCH))
+        serve_launches = {k.name: k.launches for k in kernels}
+        want = plain.detect_frames(frames[:BATCH])
+        want_stream = list(plain.detect_stream(frames, batch_size=BATCH))
+        same_serve = (same_detections(got, want)
+                      and same_detections(streamed, want_stream))
+        check_detections(streamed, cfg)
+
+        def frame_ms(det):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(0, FRAMES, BATCH):
+                det.detect_frames(frames[i:i + BATCH])
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / FRAMES
+
+        serve_turns = {"plain": [], "mesh": []}
+        for name in ("plain", "mesh", "mesh", "plain"):
+            serve_turns[name].append(frame_ms(plain if name == "plain"
+                                              else meshed))
+        for d in (plain, meshed):
+            d.close()
+        del plain, meshed
+        torch.cuda.empty_cache()
+
+        # training: PyTorch's deterministic algorithms (cuDNN's, and
+        # sorted index accumulation in place of atomics), so a step has
+        # one result to compare with
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        batch, anchors = mesh_step_inputs(cfg, device)
+        base = build_model(cfg, seed=0, device=device).train()
+
+        def fresh(with_mesh):
+            model = copy.deepcopy(base)
+            if with_mesh:
+                shard_params(model, mesh)
+            state = TrainState.create(cfg, model)
+            return state, make_train_step(cfg, anchors,
+                                          mesh=mesh if with_mesh else None)
+
+        def one_step(with_mesh, count=False):
+            state, step = fresh(with_mesh)
+            if count:
+                for k in kernels:
+                    k.launches = 0
+            m = step(state, batch)
+            torch.cuda.synchronize()
+            launches = {k.name: k.launches for k in kernels}
+            return float(m["total_loss"]), {
+                n: p.detach().clone() for n, p in
+                state.model.named_parameters()}, launches
+
+        loss_m, params_m, train_launches = one_step(True, count=True)
+        loss_a, params_a, _ = one_step(False)
+        loss_b, params_b, _ = one_step(False)
+        torch.use_deterministic_algorithms(False)
+
+        def dist_(pa, pb):
+            return max(float((pa[n].double() - pb[n].double()).abs().max())
+                       for n in pa)
+
+        own = max(abs(loss_a - loss_b), dist_(params_a, params_b))
+        mesh_vs_plain = max(abs(loss_m - loss_a), dist_(params_m, params_a))
+        same_step = mesh_vs_plain <= own
+        del params_m, params_a, params_b
+
+        state_m, step_m = fresh(True)
+        step_m(state_m, batch)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step_m(state_m, batch)
+            torch.cuda.synchronize()
+        nccl = nccl_evidence(prof)
+        state_p, step_p = fresh(False)
+        step_p(state_p, batch)
+
+        def step_ms(step, state):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(2):
+                step(state, batch)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / 2
+
+        step_turns = {"plain": [], "mesh": []}
+        for name in ("plain", "mesh", "mesh", "plain"):
+            step_turns[name].append(
+                step_ms(step_p, state_p) if name == "plain"
+                else step_ms(step_m, state_m))
+        torch.backends.cudnn.deterministic = deterministic
+        primary = is_primary()
+    finally:
+        if started:
+            dist.destroy_process_group()
+    needed_serve = ("column_merge", "fpn_gather")
+    needed_train = ("column_merge", "column_merge_bwd", "merge_taps_bwd",
+                    "fpn_gather")
+    missing = ([n for n in needed_serve if serve_launches[n] == 0]
+               + [n for n in needed_train if train_launches[n] == 0])
+    ok = (same_serve and same_step and primary and not missing
+          and bool(nccl["device_kernels"] or nccl["host_calls"]))
+    mean = lambda v: sum(v) / len(v)  # noqa: E731
+    rec = {"phase": "parallel", "ok": ok,
+           "config": "default Config (full width, float32), batch "
+                     f"{BATCH}, {FRAMES} synthetic frames",
+           "world": 1, "backend": "nccl", "mesh": [1, 1],
+           "serve_bit_equal": same_serve,
+           "step_loss": {"mesh": loss_m, "plain": [loss_a, loss_b]},
+           "step_mesh_vs_plain_max_abs": mesh_vs_plain,
+           "step_plain_vs_plain_max_abs": own,
+           "nccl": nccl,
+           "serve_ms_per_frame_turns": serve_turns,
+           "serve_ms_per_frame": {k: mean(v) for k, v in
+                                  serve_turns.items()},
+           "step_ms_turns": step_turns,
+           "step_ms": {k: mean(v) for k, v in step_turns.items()},
+           "serve_launches": serve_launches,
+           "train_launches": train_launches}
+    emit(rec)
+    check(ok, f"parallel phase failed: serve equal {same_serve}, step "
+              f"{mesh_vs_plain} vs own {own}, missing launches {missing}, "
+              f"nccl {nccl}")
+    return rec
+
+
+# ------------------------------------------------------------- K2 backward
+
+
+def phase_fpn_gather_bwd(gather_args, eps, swapped,
+                         name="fpn_gather_bwd"):
+    """K2's backward (plain PyTorch, JAX's transpose) through
+    ``fpn_gather`` on the card: the forward is the kernel, the levels'
+    gradient the scatter-add ``fpn_gather_backward``; ``points_rc`` gets
+    none.  In float32 it is held to autograd through ``fpn_gather_plain``
+    (the plain version's float32 tolerance); in bfloat16 to the same
+    formula summed in float32 and not rounded (one bfloat16 step of each
+    value, plus float32 summation order), and autograd through the plain
+    version is recorded beside it."""
+    import torch
+
+    from mvxnet_makise_tpu_torch.ops import gather as ga
+
+    feats, rc, valid, gsize = gather_args
+    dtype = feats[0].dtype
+    gen = torch.Generator(device=rc.device).manual_seed(5)
+    ctot = sum(f.shape[-1] for f in feats)
+    cot = torch.randn((*valid.shape, ctot), generator=gen,
+                      device=rc.device).to(dtype)
+    leaves = [f.detach().clone().requires_grad_(True) for f in feats]
+    rc_leaf = rc.detach().clone().requires_grad_(True)
+    launches0, calls0 = ga.KERNEL.launches, ga.BACKWARD.launches
+    out = ga.fpn_gather(leaves, rc_leaf, valid, gsize, eps=eps,
+                        swapped_weights=swapped)
+    out.backward(cot)
+    torch.cuda.synchronize()
+    got = [f.grad for f in leaves]
+    check(ga.KERNEL.launches == launches0 + 1
+          and ga.BACKWARD.launches == calls0 + 1,
+          "fpn_gather's forward kernel or backward did not run")
+    no_rc_grad = rc_leaf.grad is None
+
+    plain_leaves = [f.detach().clone().requires_grad_(True) for f in feats]
+    plain_out = ga.fpn_gather_plain(plain_leaves, rc, valid, gsize, eps=eps,
+                                    swapped_weights=swapped)
+    plain_out.backward(cot)
+    want = [f.grad for f in plain_leaves]
+    errs = [rel_err(g, w) for g, w in zip(got, want)]
+    err = max(e[0] for e in errs)
+    rel = max(e[1] for e in errs)
+    steps = None
+    if dtype == torch.bfloat16:
+        summed = ga.fpn_gather_backward(
+            cot, rc, valid, [f.shape for f in feats],
+            [torch.float32] * 3, gsize, eps=eps, swapped_weights=swapped)
+        scale = max(float(s.abs().max()) for s in summed)
+        steps = max(bf16_steps(g, s, K2_BF16_SLACK * scale)
+                    for g, s in zip(got, summed))
+        ok = steps <= 1
+    else:
+        ok = rel <= TOL["fpn_gather"]["out"]
+    ok = ok and no_rc_grad
+
+    shapes = [f.shape for f in feats]
+    dtypes = [dtype] * 3
+    plain_graph = ga.fpn_gather_plain(plain_leaves, rc, valid, gsize,
+                                      eps=eps, swapped_weights=swapped)
+    times = {"ms": time_ms(lambda: ga.fpn_gather_backward(
+                 cot, rc, valid, shapes, dtypes, gsize, eps=eps,
+                 swapped_weights=swapped), iters=10),
+             "plain_ms": time_ms(lambda: torch.autograd.grad(
+                 plain_graph, plain_leaves, cot, retain_graph=True),
+                 iters=3, warmup=1),
+             "library_ms": None}
+    # bytes this run's data needs: the cotangent, points and mask read
+    # once, every level gradient written once; operations: per valid
+    # point, channel and tap a multiply and an add
+    es = feats[0].element_size()
+    n_valid = int(valid.sum())
+    n_bytes = (cot.numel() * es + rc.numel() * 4 + valid.numel()
+               + sum(f.numel() for f in feats) * es)
+    n_ops = n_valid * ctot * 4 * 2
+    bound_ms = max(n_bytes / HBM_BYTES_PER_S, n_ops / F32_FLOP_PER_S) * 1e3
+    rec = {"phase": "kernel", "name": name, "ok": ok,
+           "route": "plain PyTorch (index_add_), no kernel of its own",
+           "shapes": {"levels": [list(s) for s in shapes],
+                      "points": list(rc.shape), "valid_points": n_valid},
+           "dtype": str(dtype), "swapped_weights": swapped,
+           "points_rc_grad_is_none": no_rc_grad,
+           "max_abs_err": err, "rel_err": rel,
+           "bf16_steps_vs_float32_sum": steps,
+           "tolerance": ({"bf16_steps_vs_float32_sum": 1}
+                         if steps is not None
+                         else {"rel": TOL["fpn_gather"]["out"]}),
+           **times, "bytes": n_bytes, "ops": n_ops, "bound_ms": bound_ms,
+           "bound_by": ("bytes" if n_bytes / HBM_BYTES_PER_S
+                        >= n_ops / F32_FLOP_PER_S else "operations")}
+    emit(rec)
+    check(ok, f"K2's backward ({name}) disagrees: rel {rel}, {steps} "
+              f"bfloat16 steps, points_rc grad None: {no_rc_grad}")
+    return rec
+
+
+# ------------------------------------------------------------- tools
+
+
+def run_module(module, args, timeout) -> tuple:
+    """``python -m module args`` from the repository root; returns
+    (exit code, JSON records of its standard output, seconds, stderr
+    tail)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=ROOT,
+                          capture_output=True, text=True, timeout=timeout)
+    recs = []
+    for ln in proc.stdout.splitlines():
+        try:
+            recs.append(json.loads(ln))
+        except json.JSONDecodeError:
+            pass
+    return (proc.returncode, recs, time.perf_counter() - t0,
+            proc.stderr[-2000:])
+
+
+# the tools the tools phase runs: module, arguments, the record key and
+# the module's constant naming what each run must print (its JAX
+# counterpart's benches and stages)
+TOOL_RUNS = (
+    ("bench_host", [], "bench", "BENCHES"),
+    ("profile_components", ["--batch", "4", "--iters", "3"], "stage",
+     "STAGES"),
+    ("profile_train", ["--batch", "4", "--iters", "2"], "stage", "STAGES"),
+)
+TOOL_ARGS = []
+TOOL_TIMEOUT_S = 600
+
+
+def phase_tools(device):
+    """The three measurement tools as subprocesses, each exiting 0 and
+    printing every stage its JAX counterpart prints; then
+    ``utils.profiling.trace_context`` around one ``detect_frames`` writes
+    a trace that names K1's and K2's kernels."""
+    import glob
+    import importlib
+    import shutil
+    import tempfile
+
+    import torch
+
+    from mvxnet_makise_tpu_torch.config import Config
+    from mvxnet_makise_tpu_torch.serve import Detector
+    from mvxnet_makise_tpu_torch.utils.profiling import trace_context
+
+    torch.cuda.empty_cache()
+    runs, ok = {}, True
+    for tool, args, key, constant in TOOL_RUNS:
+        module = f"mvxnet_makise_tpu_torch.tools.{tool}"
+        names = getattr(importlib.import_module(module), constant)
+        extra = TOOL_ARGS if tool.startswith("profile") else []
+        rc, recs, seconds, err = run_module(module, args + extra,
+                                            TOOL_TIMEOUT_S)
+        printed = [r[key] for r in recs if key in r]
+        good = rc == 0 and all(n in printed for n in names)
+        ok &= good
+        runs[tool] = {
+            "rc": rc, "seconds": seconds, "records": recs,
+            **({} if good else {"stderr": err,
+                                "missing": [n for n in names
+                                            if n not in printed]})}
+    cfg = Config(**FULL_OVERRIDES)
+    det = Detector.create(cfg, checkpoint_epoch=0, seed=0, device=device)
+    frames = make_frames(cfg, BATCH, seed=0)
+    det.warm((BATCH,))
+    logdir = tempfile.mkdtemp(prefix="trace_")
+    try:
+        with trace_context(logdir):
+            det.detect_frames(frames)
+            torch.cuda.synchronize()
+        traces = glob.glob(os.path.join(logdir, "*.json"))
+        text = open(traces[0]).read() if traces else ""
+    finally:
+        det.close()
+        shutil.rmtree(logdir)
+    named = {"merge_kernel": "merge_kernel" in text,
+             "fpn_gather_kernel": "fpn_gather_kernel" in text}
+    ok &= len(traces) == 1 and all(named.values())
+    rec = {"phase": "tools", "ok": bool(ok), "runs": runs,
+           "trace": {"files": len(traces), "bytes": len(text),
+                     "names": named}}
+    emit(rec)
+    check(ok, "tools phase failed: see its record")
+    return rec
 
 
 # ------------------------------------------------------------- main
@@ -2761,6 +3187,8 @@ def main() -> int:
                 *phase_merge_taps(merge_args, cfg.voxel_shape),
                 phase_fpn_gather(gather_args, cfg.eps,
                                  cfg.compat_swapped_bilerp),
+                phase_fpn_gather_bwd(gather_args, cfg.eps,
+                                     cfg.compat_swapped_bilerp),
                 *phase_scatter_grid(scatter_args, cfg.voxel_shape)]
         del merge_args, gather_args, scatter_args
         recs += phase_kernels_bf16(device)
@@ -2793,6 +3221,8 @@ def main() -> int:
     finally:
         shutil.rmtree(work)    # the tree and every phase's checkpoints
     phase_bench()
+    par = phase_parallel(device, kernels)
+    phase_tools(device)
 
     cm, pm = ("mvxnet_makise_tpu_torch/csrc/column_merge.cu",
               "mvxnet_makise_tpu/ops/pallas_column_merge.py")
@@ -2821,6 +3251,19 @@ def main() -> int:
                          "train_dense3d", dense),
         "scatter_grid_bwd": (sg, "mvxnet_makise_tpu/models/voxelnet.py:268",
                              "train_dense3d", dense)}
+    # K2's backward is plain PyTorch (JAX's is XLA, no pallas_call): its
+    # records go beside the kernels', marked plain
+    bwd_replaces = "mvxnet_makise_tpu/ops/pallas_gather.py:287"
+    plain = [{"name": r["name"], "route": "plain",
+              "source": "mvxnet_makise_tpu_torch/ops/gather.py",
+              "replaces": bwd_replaces,
+              "launches": 0, "path": "none: the pyramid is frozen and "
+                                     "detached on every model path",
+              "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+              "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+              "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+             for r in recs if r["name"].startswith("fpn_gather_bwd")]
+    recs = [r for r in recs if not r["name"].startswith("fpn_gather_bwd")]
     line = []
     for r in recs:
         source, replaces, path, run = table[r["name"]]
@@ -2846,6 +3289,9 @@ def main() -> int:
             "norm_scope_launches": (
                 scope["serve_launches"][wrapper]
                 + scope["train_launches"][wrapper] if f32 else None),
+            "parallel_launches": (
+                par["serve_launches"][wrapper]
+                + par["train_launches"][wrapper] if f32 else None),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -2854,7 +3300,7 @@ def main() -> int:
                 "gather_ms": r["gather"]["ms"],
                 "gather_bound_ms": r["gather"]["bound_ms"]}
                if "first_pass" in r else {})})
-    emit({"kernels": line})
+    emit({"kernels": line, "plain": plain})
     print(gpu_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -23,48 +23,93 @@ for convolutions.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 
-def set_norm_scope(model: nn.Module, scope: str) -> nn.Module:
+def set_norm_scope(model: nn.Module, scope: str,
+                   group: Optional[Any] = None) -> nn.Module:
     """Set every norm of ``model`` to per-sample (``scope="sample"``) or
-    batch-wide (``"batch"``) statistics; returns the model."""
+    batch-wide (``"batch"``) statistics; returns the model.  ``group``: the
+    data ranks' process group of a mesh, over which batch-wide statistics
+    are pooled (None: this process's batch is the whole batch).  Sample
+    scope needs no communication and ignores it."""
     if scope not in ("sample", "batch"):
         raise ValueError(f"unknown norm_scope {scope!r}")
     for m in model.modules():
         if hasattr(m, "batch_stats"):
             m.batch_stats = scope == "batch"
+            m.stats_group = group if scope == "batch" else None
     return model
+
+
+def pooled(tensors: Sequence[torch.Tensor], group) -> List[torch.Tensor]:
+    """Each tensor summed over ``group``'s ranks, in one all-reduce in at
+    least float32 (differentiable), and returned in its own dtype; as
+    they are when ``group`` is None."""
+    if group is None:
+        return list(tensors)
+    from mvxnet_makise_tpu_torch.parallel.tensor import all_reduce_sum
+
+    dtype = torch.float32
+    for t in tensors:
+        dtype = torch.promote_types(dtype, t.dtype)
+    flat = all_reduce_sum(torch.cat([t.to(dtype).reshape(-1)
+                                     for t in tensors]), group)
+    out, off = [], 0
+    for t in tensors:
+        out.append(flat[off:off + t.numel()].reshape(t.shape).to(t.dtype))
+        off += t.numel()
+    return out
 
 
 def standardize(x: torch.Tensor, eps: float = 1e-6,
                 dims: Sequence[int] = (2, 3),
-                batch: bool = False) -> torch.Tensor:
+                batch: bool = False, group: Optional[Any] = None
+                ) -> torch.Tensor:
     """Zero-mean unit-variance over ``dims`` (biased variance, eps inside
     the square root) — torch BatchNorm(affine=False,
     track_running_stats=False) with per-sample statistics, or with
-    ``batch`` over the batch axis too."""
+    ``batch`` over the batch axis too (and with ``group`` over the batch
+    axis of every data rank)."""
     dims = (0, *dims) if batch else tuple(dims)
-    mean = x.mean(dim=dims, keepdim=True)
-    var = torch.square(x - mean).mean(dim=dims, keepdim=True)
+    if batch and group is not None:
+        # summed in at least float32 and rounded once, as ``mean`` does
+        acc = torch.promote_types(x.dtype, torch.float32)
+        n = torch.tensor(float(np.prod([x.shape[d] for d in dims])),
+                         dtype=acc, device=x.device)
+        s, n = pooled([x.sum(dim=dims, keepdim=True, dtype=acc), n], group)
+        mean = (s / n).to(x.dtype)
+        (ss,) = pooled([torch.square(x - mean).sum(dim=dims, keepdim=True,
+                                                   dtype=acc)], group)
+        var = (ss / n).to(x.dtype)
+    else:
+        mean = x.mean(dim=dims, keepdim=True)
+        var = torch.square(x - mean).mean(dim=dims, keepdim=True)
     return (x - mean) * torch.reciprocal(torch.sqrt(var + eps))
 
 
 def masked_standardize(x: torch.Tensor, mask: torch.Tensor,
-                       eps: float = 1e-6, batch: bool = False
-                       ) -> torch.Tensor:
-    """Per-sample (with ``batch``, batch-wide), per-channel
-    standardization over the rows of x (B, ..., C) where ``mask`` (B, ...)
-    is true; masked-out rows get the same affine map and contribute
-    nothing to the statistics."""
+                       eps: float = 1e-6, batch: bool = False,
+                       group: Optional[Any] = None) -> torch.Tensor:
+    """Per-sample (with ``batch``, batch-wide; with ``group`` too, over
+    every data rank's batch), per-channel standardization over the rows of
+    x (B, ..., C) where ``mask`` (B, ...) is true; masked-out rows get the
+    same affine map and contribute nothing to the statistics."""
     m = mask[..., None].to(x.dtype)
     dims = tuple(range(0 if batch else 1, x.dim() - 1))
-    denom = torch.clamp(m.sum(dim=dims, keepdim=True), min=1.0)
-    mean = (x * m).sum(dim=dims, keepdim=True) / denom
-    var = (torch.square(x - mean) * m).sum(dim=dims, keepdim=True) / denom
+    group = group if batch else None
+    msum, xsum = pooled([m.sum(dim=dims, keepdim=True),
+                         (x * m).sum(dim=dims, keepdim=True)], group)
+    denom = torch.clamp(msum, min=1.0)
+    mean = xsum / denom
+    (ssum,) = pooled([(torch.square(x - mean) * m).sum(dim=dims,
+                                                       keepdim=True)],
+                     group)
+    var = ssum / denom
     return (x - mean) * torch.reciprocal(torch.sqrt(var + eps))
 
 
@@ -77,6 +122,7 @@ class DenseReluNorm(nn.Module):
         self.fc = nn.Linear(in_features, features)
         self.eps = eps
         self.batch_stats = False
+        self.stats_group = None
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -84,16 +130,18 @@ class DenseReluNorm(nn.Module):
         if mask is None:
             mask = torch.ones(x.shape[:-1], dtype=torch.bool,
                               device=x.device)
-        return masked_standardize(x, mask, self.eps, self.batch_stats)
+        return masked_standardize(x, mask, self.eps, self.batch_stats,
+                                  self.stats_group)
 
 
-def _moments(n_tot, sum_h, sum_h2, eps, batch: bool):
+def _moments(n_tot, sum_h, sum_h2, eps, batch: bool, group=None):
     """(mean, 1/std) from per-sample (B, C) row counts and first and
     second sums; with ``batch`` the sums are pooled over the batch into
-    (1, C)."""
+    (1, C), and with ``group`` over every data rank's batch."""
     if batch:
-        n_tot, sum_h, sum_h2 = (t.sum(dim=0, keepdim=True)
-                                for t in (n_tot, sum_h, sum_h2))
+        n_tot, sum_h, sum_h2 = pooled([t.sum(dim=0, keepdim=True)
+                                       for t in (n_tot, sum_h, sum_h2)],
+                                      group)
     mean = sum_h / n_tot
     var = torch.clamp(sum_h2 / n_tot - torch.square(mean), min=0.0)
     inv = torch.reciprocal(torch.sqrt(var + eps))
@@ -110,6 +158,7 @@ class DenseReluNormVirtual(nn.Module):
         self.fc = nn.Linear(in_features, features)
         self.eps = eps
         self.batch_stats = False
+        self.stats_group = None
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor, z: torch.Tensor,
                 n_virtual: torch.Tensor
@@ -124,7 +173,7 @@ class DenseReluNormVirtual(nn.Module):
         mean, inv = _moments(
             n_tot, (h * m).sum(dim=1) + nv * hz,
             (torch.square(h) * m).sum(dim=1) + nv * torch.square(hz),
-            self.eps, self.batch_stats)
+            self.eps, self.batch_stats, self.stats_group)
         return (h - mean[:, None]) * inv[:, None], (hz - mean) * inv
 
 
@@ -139,6 +188,7 @@ class DenseReluNormVirtualWeighted(nn.Module):
         self.fc = nn.Linear(in_features, features)
         self.eps = eps
         self.batch_stats = False
+        self.stats_group = None
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor, z: torch.Tensor,
                 w: torch.Tensor, zmask: torch.Tensor
@@ -155,7 +205,7 @@ class DenseReluNormVirtualWeighted(nn.Module):
             (h * m).sum(dim=1) + (hz * wv).sum(dim=1),
             (torch.square(h) * m).sum(dim=1)
             + (torch.square(hz) * wv).sum(dim=1), self.eps,
-            self.batch_stats)
+            self.batch_stats, self.stats_group)
         mean, inv = mean[:, None], inv[:, None]
         return (h - mean) * inv, (hz - mean) * inv
 
@@ -170,10 +220,11 @@ class ConvReluNorm(nn.Module):
                               padding)
         self.eps = eps
         self.batch_stats = False
+        self.stats_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return standardize(torch.relu(self.conv(x)), self.eps,
-                           batch=self.batch_stats)
+                           batch=self.batch_stats, group=self.stats_group)
 
 
 class DeconvReluNorm(nn.Module):
@@ -186,7 +237,8 @@ class DeconvReluNorm(nn.Module):
                                          stride, padding)
         self.eps = eps
         self.batch_stats = False
+        self.stats_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return standardize(torch.relu(self.deconv(x)), self.eps,
-                           batch=self.batch_stats)
+                           batch=self.batch_stats, group=self.stats_group)

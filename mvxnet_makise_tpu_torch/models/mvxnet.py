@@ -56,9 +56,10 @@ class MVXNetPM(nn.Module):
                  image_min_side: float = 800.0,
                  rpn_trunk: Tuple = REFERENCE_RPN_TRUNK,
                  cml_mode: str = "column", scatter_backend: str = "auto",
-                 remat: bool = False):
+                 remat: bool = False, origin_is_empty: bool = False):
         super().__init__()
         self.samples_per_voxel = samples_per_voxel
+        self.origin_is_empty = origin_is_empty
         self.head = PointImageHead(image_size, eps, swapped_bilerp,
                                    image_min_side)
         self.backbone = VoxelNetBranchPM(
@@ -68,14 +69,23 @@ class MVXNetPM(nn.Module):
     def fused_inputs(self, sorted_points, sorted_kept, sorted_seg, counts,
                      vmask, images):
         """Per-point 23-channel inputs of the LiDAR branch and the
-        empty-slot row per voxel: (x (B, P, 23), z0 (B, V, 23))."""
+        empty-slot row per voxel: (x (B, P, 23), z0 (B, V, 23)).  With
+        ``origin_is_empty`` a kept point at x = y = z = 0 enters the image
+        branch as an empty slot: not gathered, counted among the virtual
+        rows, its image feature the empty-slot feature."""
         B, V = counts.shape
+        seen = sorted_kept
+        if self.origin_is_empty:
+            seen = sorted_kept & (sorted_points[..., :3] != 0).any(dim=-1)
         # per sample; batch-wide norms pool it with their sums, which
         # gives JAX's batch total (blocks._moments)
         n_virtual = (vmask.sum(dim=1) * self.samples_per_voxel
-                     - sorted_kept.sum(dim=1))
-        imfeat, z16 = self.head(images, sorted_points[..., 4:6],
-                                sorted_kept, n_virtual)
+                     - seen.sum(dim=1))
+        imfeat, z16 = self.head(images, sorted_points[..., 4:6], seen,
+                                n_virtual)
+        if self.origin_is_empty:
+            imfeat = torch.where(seen[..., None], imfeat,
+                                 z16[:, None, :].expand_as(imfeat))
         pf7 = point_lidar_features(sorted_points, sorted_seg, sorted_kept,
                                    counts, self.samples_per_voxel)
         x = torch.cat([pf7.to(imfeat.dtype), imfeat], dim=-1)
@@ -201,7 +211,9 @@ def build_model(cfg: Config, seed: Optional[int] = 0,
 
     ``fusion_mode`` "pm", and JAX's "slot" (``MVXNet``) and "point"
     (``MVXNetPointFusion``), which compute ``MVXNetPM``'s function on its
-    parameter tree, build :class:`MVXNetPM`; "voxel" builds
+    parameter tree, build :class:`MVXNetPM` ("slot" with
+    ``origin_is_empty``: JAX's ``MVXNet`` takes a sample at x = y = z = 0
+    for an empty slot of the image branch); "voxel" builds
     :class:`MVXNetVoxelFusion`, as JAX does without ``remat``,
     ``compat_swapped_bilerp``, ``gather_backend`` or ``fusion_stats``.
     ``cml_mode`` "banded" builds the column CML (``voxelnet.make_cml``).
@@ -222,7 +234,9 @@ def build_model(cfg: Config, seed: Optional[int] = 0,
         model = MVXNetVoxelFusion(**common)
     elif with_images:
         model = MVXNetPM(swapped_bilerp=cfg.compat_swapped_bilerp,
-                         remat=cfg.remat, **common)
+                         remat=cfg.remat,
+                         origin_is_empty=cfg.fusion_mode == "slot",
+                         **common)
     else:
         model = VoxelNetBranchPM(
             7, cfg.voxel_shape, cfg.anchors_per_loc, cfg.box_dim, MODEL_EPS,

@@ -24,6 +24,7 @@ from torch import nn
 from mvxnet_makise_tpu_torch.models.blocks import (
     ConvReluNorm,
     DeconvReluNorm,
+    pooled,
     standardize,
 )
 from mvxnet_makise_tpu_torch.ops.column_conv import (
@@ -51,6 +52,10 @@ class Conv3dParams(nn.Module):
         self.weight = nn.Parameter(torch.empty(features, in_features, 3, 3, 3))
         self.bias = nn.Parameter(torch.zeros(features))
 
+    def forward(self, x: torch.Tensor, stride, padding) -> torch.Tensor:
+        """The dense 3x3x3 convolution of (B, Cin, D, H, W)."""
+        return F.conv3d(x, self.weight, self.bias, stride, padding)
+
 
 class MergeInputs(NamedTuple):
     """The arguments K1 receives on the model path."""
@@ -73,6 +78,7 @@ class ColumnConv1ReluNorm(nn.Module):
         self.grid_shape = tuple(int(g) for g in grid_shape)
         self.eps = eps
         self.batch_stats = False
+        self.stats_group = None
 
     @property
     def d_out(self) -> int:
@@ -103,8 +109,11 @@ class ColumnConv1ReluNorm(nn.Module):
         s = stats.sum(dim=1).reshape(B, 2, d_out, cout).sum(dim=2)
         n = nx * ny * d_out
         if self.batch_stats:
-            # the frames' statistics pooled: K1 itself is per frame
+            # the frames' statistics pooled (over every data rank's
+            # frames under a mesh): K1 itself is per frame
             s, n = s.sum(dim=0, keepdim=True), n * B
+            if self.stats_group is not None:
+                s, n = pooled([s, s.new_tensor(float(n))], self.stats_group)
         mean = s[:, 0] / n                        # (B, Cout) or (1, Cout)
         var = s[:, 1] / n - mean * mean
         x = out.reshape(B, nx, ny, d_out, cout)
@@ -123,12 +132,12 @@ class Conv3dReluNorm(nn.Module):
         self.conv = Conv3dParams(in_features, features)
         self.stride, self.padding, self.eps = stride, padding, eps
         self.batch_stats = False
+        self.stats_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv3d(x, self.conv.weight, self.conv.bias, self.stride,
-                     self.padding)
+        y = self.conv(x, self.stride, self.padding)
         return standardize(torch.relu(y), self.eps, dims=(2, 3, 4),
-                           batch=self.batch_stats)
+                           batch=self.batch_stats, group=self.stats_group)
 
 
 class MiddleConvLayersColumn(nn.Module):
@@ -233,6 +242,7 @@ class RPN(nn.Module):
         self.cls = nn.Conv2d(3 * dch, anchors_per_loc, 1)
         self.reg = nn.Conv2d(3 * dch, anchors_per_loc * box_dim, 1)
         self.batch_stats = False
+        self.stats_group = None
 
     def forward(self, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:

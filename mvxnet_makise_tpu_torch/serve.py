@@ -15,6 +15,13 @@ cast once when the detector is made and again by :meth:`Detector.set_params`
 (JAX's serving casts them once per weight set too); the points stay
 float32.
 
+With ``mesh`` (``parallel.make_mesh``, one process per card) the
+detector serves data-parallel as JAX's does: every rank passes the same
+frames, each data rank runs its contiguous slice of the batch, and every
+rank gets the whole batch's detections in frame order (an
+``all_gather_object`` over the data ranks); the model axis cuts the large
+layers' output channels (``parallel.shard_params``).
+
 PyTorch compiles nothing per batch size, so no request is padded to a
 pooled batch size; :meth:`Detector.warm` builds the CUDA kernels and runs
 one batch of each size ahead of the first request instead.  Under
@@ -80,8 +87,18 @@ class Detector:
                  score_threshold: float = 0.3,
                  nms_iou_threshold: float = 0.1,
                  pre_max_size: int = 256,
-                 post_max_size: int = 64):
+                 post_max_size: int = 64,
+                 mesh=None):
+        """``mesh``: optional ``('data', 'model')`` DeviceMesh
+        (``parallel.make_mesh``) for data-parallel serving; every rank
+        builds the detector on the same weights and passes the same
+        frames, and a batch must split evenly over the data ranks."""
         self.cfg = cfg
+        self.mesh = mesh
+        if mesh is not None:
+            from mvxnet_makise_tpu_torch.parallel.mesh import shard_params
+
+            shard_params(model, mesh)
         self.model = model.eval()
         self.with_images = with_images
         self.device = next(model.parameters()).device
@@ -107,7 +124,7 @@ class Detector:
                checkpoint_epoch: Optional[int] = None,
                state_dict: Optional[Mapping[str, torch.Tensor]] = None,
                seed: int = 0, device: DeviceLike = None,
-               with_images: bool = True, **kw) -> "Detector":
+               with_images: bool = True, mesh=None, **kw) -> "Detector":
         """A detector on ``device`` (default: the CUDA card) with the
         weights of ``state_dict`` (a state dict of the model
         ``models.mvxnet.build_model`` builds for ``cfg``, e.g.
@@ -116,7 +133,8 @@ class Detector:
         else those of epoch ``checkpoint_epoch``'s checkpoint in
         ``cfg.checkpoint_dir`` (``train/checkpoint``), the latest epoch
         there when ``checkpoint_epoch`` is None; else (0, or no
-        checkpoint) random weights drawn from ``seed``."""
+        checkpoint) random weights drawn from ``seed``.  ``mesh``: see
+        :meth:`__init__`."""
         if state_dict is None and checkpoint_epoch is None:
             checkpoint_epoch = ckpt.latest_epoch(cfg.checkpoint_dir)
         restore = state_dict is not None or bool(checkpoint_epoch)
@@ -126,13 +144,15 @@ class Detector:
             model.load_state_dict(state_dict, strict=True)
         elif checkpoint_epoch:
             ckpt.restore_model(cfg.checkpoint_dir, checkpoint_epoch, model)
-        return cls(cfg, model, with_images, **kw)
+        return cls(cfg, model, with_images, mesh=mesh, **kw)
 
     @torch.no_grad()
     def set_params(self, state_dict: Mapping[str, torch.Tensor]) -> None:
         """Swap in new weights (e.g. a fresh checkpoint): a state dict of
         the detector's model, loaded strictly, and under ``use_bf16`` the
-        bfloat16 copies the forward runs on cast again from it."""
+        bfloat16 copies the forward runs on cast again from it.  Under a
+        mesh it is the whole model's, and each model rank takes its
+        slices of it."""
         self.model.load_state_dict(state_dict, strict=True)
         self.tensors = cast_for_compute(self.model, self.cfg.use_bf16,
                                         self.with_images)
@@ -149,8 +169,9 @@ class Detector:
     def run_batch(self, points, num_points, images) -> List[Detections]:
         """Detections (on the device) for one assembled batch:
         points (B, P, 6), num_points (B,), images (B, H, W, 3), numpy or
-        tensors."""
-        score, reg = self.maps(points, num_points, images)
+        tensors.  Under a mesh, those of this data rank's slice of the
+        batch (:meth:`detect_batch` gathers the whole)."""
+        score, reg = self.maps(*self._local(points, num_points, images))
         return [decode_predictions(
             s.float(), r.float(), self.anchors,
             score_threshold=self.score_threshold,
@@ -159,12 +180,45 @@ class Detector:
             post_max_size=self.post_max_size)
             for s, r in zip(score, reg)]
 
+    def _local(self, points, num_points, images):
+        """This data rank's rows of an assembled batch (all of it without
+        a mesh); a batch that does not split evenly over the data ranks
+        raises ValueError."""
+        if self.mesh is None:
+            return points, num_points, images
+        from mvxnet_makise_tpu_torch.parallel.mesh import (
+            axis_size,
+            shard_batch,
+        )
+
+        n = axis_size(self.mesh, "data")
+        if len(points) % n:
+            raise ValueError(f"a batch of {len(points)} frames does not "
+                             f"split over {n} data ranks")
+        return shard_batch((points, num_points, images), self.mesh)
+
+    def _collect(self, dets: Sequence[Detections]) -> List[FrameDetections]:
+        """Host detections of one batch run by :meth:`run_batch`: under a
+        mesh, every data rank's slice gathered in frame order."""
+        out = self._unpack(dets)
+        if self.mesh is None:
+            return out
+        import torch.distributed as dist
+
+        from mvxnet_makise_tpu_torch.parallel.mesh import axis_size
+
+        parts = [None] * axis_size(self.mesh, "data")
+        dist.all_gather_object(parts, out,
+                               group=self.mesh.get_group("data"))
+        return [d for part in parts for d in part]
+
     @torch.no_grad()
     def maps(self, points, num_points, images):
         """The model's (score, reg) maps, in its compute dtype, for one
-        assembled batch.  The points keep the masters' dtype (float32
-        under ``use_bf16``): bfloat16 coordinates would move points
-        between voxels."""
+        assembled batch (under a mesh: this data rank's rows, as
+        :meth:`run_batch` hands them).  The points keep the masters' dtype
+        (float32 under ``use_bf16``): bfloat16 coordinates would move
+        points between voxels."""
         dev = self.device
         pts = torch.as_tensor(points).to(dev, self.dtype)
         nums = torch.as_tensor(num_points).to(dev)
@@ -216,8 +270,9 @@ class Detector:
     def detect_batch(self, points, num_points,
                      images) -> List[FrameDetections]:
         """Detections for one batch already assembled by
-        :meth:`assemble`."""
-        return self._unpack(self.run_batch(points, num_points, images))
+        :meth:`assemble` (under a mesh, the whole batch's on every
+        rank)."""
+        return self._collect(self.run_batch(points, num_points, images))
 
     def detect_frames(self, frames) -> List[FrameDetections]:
         """frames: list of (points (N, >=4), calib, image or None).
@@ -267,9 +322,12 @@ class Detector:
                 raise ValueError(
                     f"a batch of {rows} rows with {n_real} real frames "
                     f"does not fit batch_size {batch_size}")
-            cur = self.run_batch(points, num_points, images)[:n_real]
+            dets = self.run_batch(points, num_points, images)
+            # without a mesh the padding rows are dropped before the read
+            # back; under one, after the gather
+            cur = (dets if self.mesh is not None else dets[:n_real], n_real)
             if prev is not None:
-                yield from self._unpack(prev)
+                yield from self._collect(prev[0])[:prev[1]]
             prev = cur
         if prev is not None:
-            yield from self._unpack(prev)
+            yield from self._collect(prev[0])[:prev[1]]

@@ -15,9 +15,10 @@ the forward runs on bfloat16 copies of the parameters
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from mvxnet_makise_tpu_torch.config import Config
@@ -154,8 +155,41 @@ def compute_loss(model: nn.Module, batch: Batch, targets: AnchorTargets,
              for k in metrics[0]})
 
 
+# elements per all-reduce of the flattened gradients (64 MiB of float32)
+GRAD_BUCKET = 1 << 24
+
+
+def _buckets(tensors: Sequence[torch.Tensor]):
+    """Runs of consecutive tensors of one dtype and at most GRAD_BUCKET
+    elements together (a larger tensor alone)."""
+    bucket: List[torch.Tensor] = []
+    size = 0
+    for t in tensors:
+        if bucket and (t.dtype != bucket[0].dtype
+                       or size + t.numel() > GRAD_BUCKET):
+            yield bucket
+            bucket, size = [], 0
+        bucket.append(t)
+        size += t.numel()
+    if bucket:
+        yield bucket
+
+
+def _data_mean(tensors: Sequence[torch.Tensor], group, n: int) -> None:
+    """Replace each tensor in place by its mean over the ``n`` data ranks
+    of ``group``: one all-reduce per flattened bucket."""
+    for bucket in _buckets(tensors):
+        flat = torch.cat([t.reshape(-1) for t in bucket])
+        dist.all_reduce(flat, group=group)
+        flat /= n
+        off = 0
+        for t in bucket:
+            t.copy_(flat[off:off + t.numel()].view_as(t))
+            off += t.numel()
+
+
 def make_train_step(cfg: Config, anchors: torch.Tensor,
-                    with_images: bool = True
+                    with_images: bool = True, mesh=None
                     ) -> Callable[[TrainState, Batch], Dict[str, torch.Tensor]]:
     """The train step: assign, forward, loss, backward, AdamW update (of
     the float32 masters under ``use_bf16``).  ``anchors``: (H, W, A, 7)
@@ -164,7 +198,27 @@ def make_train_step(cfg: Config, anchors: torch.Tensor,
     ``step(state, batch)`` updates ``state`` in place and returns the
     metrics.  A non-finite loss leaves the parameters, the optimizer state
     and the step count (and so the schedule) as they were, and reports
-    ``skipped_nonfinite`` = 1."""
+    ``skipped_nonfinite`` = 1.
+
+    With ``mesh`` (``parallel.make_mesh``), the step of JAX's SPMD program
+    on a sharded batch: ``state.model`` went through
+    ``parallel.shard_params`` before its optimizer was made, and ``batch``
+    is this rank's rows (``parallel.shard_batch``).  The loss is the mean
+    over the global batch: each rank's mean, averaged over the data
+    ranks (the shards are equal).  The masters' gradients are averaged
+    over the data ranks in flattened buckets (model ranks already agree
+    on the replicated parameters' gradients and own their slices'), and
+    the metrics are the global means, the same on every rank.  The
+    non-finite skip is global: it reads the all-reduced loss, which is
+    non-finite on every rank when any rank's loss is.  The model is not
+    wrapped in ``DistributedDataParallel``: the forward runs
+    ``torch.func.functional_call`` on cast copies, and DDP's reducer is
+    armed only by its own forward."""
+    group = n_data = None
+    if mesh is not None:
+        from mvxnet_makise_tpu_torch.parallel.mesh import axis_size
+
+        group, n_data = mesh.get_group("data"), axis_size(mesh, "data")
 
     def train_step(state: TrainState, batch: Batch
                    ) -> Dict[str, torch.Tensor]:
@@ -173,10 +227,23 @@ def make_train_step(cfg: Config, anchors: torch.Tensor,
         loss, metrics = compute_loss(state.model, batch, targets, anchors,
                                      cfg, with_images)
         loss.backward()
+        loss = loss.detach()
+        if group is not None:
+            names = list(metrics)
+            flat = torch.stack([loss, *(metrics[k].detach().to(loss.dtype)
+                                        for k in names)])
+            dist.all_reduce(flat, group=group)
+            flat /= n_data
+            loss = flat[0]
+            metrics = {k: v.to(metrics[k].dtype)
+                       for k, v in zip(names, flat[1:])}
         finite = bool(torch.isfinite(loss))
         if finite:
+            if group is not None:
+                _data_mean([p.grad for p in state.model.parameters()
+                            if p.grad is not None], group, n_data)
             state.apply_gradients()
-        return dict(metrics, total_loss=loss.detach(),
+        return dict(metrics, total_loss=loss,
                     skipped_nonfinite=torch.tensor(int(not finite)))
 
     return train_step

@@ -210,11 +210,12 @@ def modes_run():
     with jax.enable_x64(True):
         f64 = lambda t: jax.tree.map(  # noqa: E731
             lambda a: jnp.asarray(a, jnp.float64), t)
-        jax_maps = _run_dividing(
-            _apply_all(models, jcfg, cast=False), f64(params),
-            f64(lidar_params), jnp.asarray(arrays[0], jnp.float64),
-            jnp.asarray(arrays[1]), jnp.asarray(arrays[2], jnp.float64))
-        jax_maps = jax.tree.map(np.asarray, jax_maps)
+        args = (f64(params), f64(lidar_params))
+        compiled = jax.jit(_apply_all(models, jcfg, cast=False)).lower(
+            *args, *_jax_arrays(arrays)).compile(
+            compiler_options={"xla_disable_hlo_passes": "algsimp"})
+        jax_maps = jax.tree.map(np.asarray,
+                                compiled(*args, *_jax_arrays(arrays)))
     port = {}
     for mode in MODES:
         port[mode] = _port_maps(Config(**KW, fusion_mode=mode), params,
@@ -224,8 +225,19 @@ def modes_run():
     port["lidar"] = _port_maps(Config(**KW, fusion_mode="slot"),
                                lidar_params, arrays, with_images=False,
                                dtype=torch.float64)
+    def run_jax(other):
+        """JAX's maps of every model on other arrays of these shapes."""
+        with jax.enable_x64(True):
+            return jax.tree.map(np.asarray,
+                                compiled(*args, *_jax_arrays(other)))
     return dict(jax=jax_maps, port=port, shapes=shapes, params=params,
-                lidar_params=lidar_params, arrays=arrays)
+                lidar_params=lidar_params, arrays=arrays, run_jax=run_jax)
+
+
+def _jax_arrays(arrays):
+    """An assembled batch as JAX's float64 inputs (call under x64)."""
+    return (jnp.asarray(arrays[0], jnp.float64), jnp.asarray(arrays[1]),
+            jnp.asarray(arrays[2], jnp.float64))
 
 
 def test_each_mode_builds_its_function(modes_run):
@@ -337,3 +349,50 @@ def test_build_model_refuses_unknown_modes(field, value):
     with pytest.raises(ValueError, match=value):
         build_model(Config(**KW, **{field: value}), seed=None, device="cpu",
                     with_images=False)
+
+
+def _with_origin_point(arrays):
+    """The batch with a real point at x = y = z = 0 in each frame
+    (reflectance 0.5, inside the image), after the frame's last point or
+    in place of it when the frame is full."""
+    pts, nums, imgs = (np.array(a) for a in arrays)
+    for b in range(len(nums)):
+        i = min(int(nums[b]), pts.shape[1] - 1)
+        pts[b, i] = (0.0, 0.0, 0.0, 0.5, 30.0, 40.0)
+        nums[b] = max(int(nums[b]), i + 1)
+    return pts, nums, imgs
+
+
+@pytest.fixture(scope="module")
+def origin_run(modes_run):
+    """JAX's "slot", "point" and "pm" models and the port's, float64, on
+    frames that hold a real point at the LiDAR origin."""
+    params = modes_run["params"]
+    arrays = _with_origin_point(modes_run["arrays"])
+    jax_maps = modes_run["run_jax"](arrays)
+    port = {mode: _port_maps(Config(**KW, fusion_mode=mode), params, arrays,
+                             dtype=torch.float64)[1]
+            for mode in ("slot", "point", "pm")}
+    return dict(jax=jax_maps, port=port, arrays=arrays)
+
+
+@pytest.mark.parametrize("mode", ["slot", "point", "pm"])
+def test_origin_point_follows_each_jax_model(origin_run, modes_run, mode):
+    """JAX's ``MVXNet`` ("slot") takes a sample at x = y = z = 0 for an
+    empty slot of the image branch; ``MVXNetPointFusion`` ("point") and
+    ``MVXNetPM`` ("pm") gather its image feature.  The port's maps equal
+    each JAX model's on frames holding such a point (the tolerance of
+    :func:`test_fusion_mode_maps_match_jax`), and "slot" differs from
+    "pm" there."""
+    got = origin_run["port"][mode]
+    for i in range(2):
+        jax_own = _rel(modes_run["jax"]["pm"][i], modes_run["jax"]["slot"][i])
+        assert _rel(got[i].numpy(), origin_run["jax"][mode][i]) <= max(
+            TOL, SLOT_FACTOR * jax_own)
+    slot, pm = origin_run["port"]["slot"], origin_run["port"]["pm"]
+    assert _rel(slot[0].numpy(), pm[0].numpy()) > 1e-6
+    # the point was kept: it lies in the crop range, and the frames
+    # have room
+    pts, nums, _ = origin_run["arrays"]
+    assert all((pts[b, :nums[b], :3] == 0).all(axis=1).sum() == 1
+               for b in range(len(nums)))
