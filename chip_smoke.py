@@ -137,8 +137,16 @@ Phases, each printed as one JSON line:
 19. ``tools``: ``tools.bench_host``, ``tools.profile_components --batch 4
     --iters 3`` and ``tools.profile_train --batch 4 --iters 2`` as
     subprocesses, each exiting 0 and printing every stage of its JAX
-    counterpart; ``utils.profiling.trace_context`` around one
-    ``detect_frames`` writes a trace that names K1's and K2's kernels.
+    counterpart; the five sub-stage tools ``tools.bench_kernels
+    --iters 5``, ``bench_micro``, ``bench_branch``, ``bench_image`` and
+    ``bench_resnet`` (``--batch 4 --iters 3``) in this process, each
+    printing every row of its ``STAGES``/``BENCHES``, with the kernels'
+    counts set to 0 just before each and read just after: K4 and K2
+    under ``bench_kernels``, K1 under ``bench_micro`` and ``bench_branch``
+    and K2 under ``bench_image`` must have launched, no other kernel, and
+    every row that ran one reports ``"route": "cuda"``;
+    ``utils.profiling.trace_context`` around one ``detect_frames`` writes
+    a trace that names K1's and K2's kernels.
 
 K2's backward (``fpn_gather_bwd``, plain PyTorch: JAX's is an XLA
 scatter-add, no Pallas kernel) runs in the kernel phases beside K2, in
@@ -858,21 +866,20 @@ def bf16_steps(got, want, slack: float) -> float:
     return float(((g - w).abs() - slack).clamp(min=0).div(step).max())
 
 
-def phase_fpn_gather(gather_args, eps, swapped, name="fpn_gather"):
+def k2_agreement(got, gather_args, eps, swapped, tol) -> tuple:
+    """(max abs error, relative error, bfloat16 steps or None, ok) of K2's
+    output ``got`` against its plain version on the same arguments, held
+    to ``tol`` (TOL's "fpn_gather" or "fpn_gather_bf16" entry)."""
     import torch
 
     from mvxnet_makise_tpu_torch.ops import gather as ga
 
     feats, rc, valid, gsize = gather_args
-    launches0 = ga.KERNEL.launches
-    got = ga.fpn_gather(feats, rc, valid, gsize, eps=eps,
-                        swapped_weights=swapped)
-    check(ga.KERNEL.launches == launches0 + 1, "K2 wrapper did not launch")
     want = ga.fpn_gather_plain(feats, rc, valid, gsize, eps=eps,
                                swapped_weights=swapped)
     torch.cuda.synchronize()
     err, rel = rel_err(got, want)
-    tol = TOL[name]
+    del want
     steps = None
     if got.dtype == torch.bfloat16:
         # relative to the largest level value (TOL)
@@ -885,6 +892,21 @@ def phase_fpn_gather(gather_args, eps, swapped, name="fpn_gather"):
         del emulated
     ok = rel <= tol["out"] and (
         steps is None or steps <= tol["bf16_steps_vs_float32_sum"])
+    return err, rel, steps, ok
+
+
+def phase_fpn_gather(gather_args, eps, swapped, name="fpn_gather"):
+    import torch
+
+    from mvxnet_makise_tpu_torch.ops import gather as ga
+
+    feats, rc, valid, gsize = gather_args
+    launches0 = ga.KERNEL.launches
+    got = ga.fpn_gather(feats, rc, valid, gsize, eps=eps,
+                        swapped_weights=swapped)
+    check(ga.KERNEL.launches == launches0 + 1, "K2 wrapper did not launch")
+    tol = TOL[name]
+    err, rel, steps, ok = k2_agreement(got, gather_args, eps, swapped, tol)
 
     times = timings(
         lambda: ga.fpn_gather(feats, rc, valid, gsize, eps=eps,
@@ -3060,22 +3082,161 @@ def run_module(module, args, timeout) -> tuple:
             proc.stderr[-2000:])
 
 
-# the tools the tools phase runs: module, arguments, the record key and
-# the module's constant naming what each run must print (its JAX
-# counterpart's benches and stages)
+# the tools the tools phase runs: module, arguments, the record key, the
+# module's constant naming what each run must print (its JAX
+# counterpart's benches and stages), and, for a tool run in this process,
+# the names of the kernels it must launch, and no other, and the rows that
+# run them, which alone say "route": "cuda"; None runs it as a subprocess
+TOOL_BATCH = 4
 TOOL_RUNS = (
-    ("bench_host", [], "bench", "BENCHES"),
+    ("bench_host", [], "bench", "BENCHES", None),
     ("profile_components", ["--batch", "4", "--iters", "3"], "stage",
-     "STAGES"),
-    ("profile_train", ["--batch", "4", "--iters", "2"], "stage", "STAGES"),
+     "STAGES", None),
+    ("profile_train", ["--batch", "4", "--iters", "2"], "stage", "STAGES",
+     None),
+    ("bench_kernels", ["--batch", "4", "--iters", "5"], "kernel", "BENCHES",
+     (("scatter_grid", "fpn_gather"), ("scatter_pallas", "fpn_gather"))),
+    ("bench_micro", ["--batch", "4", "--iters", "3"], "stage", "STAGES",
+     (("column_merge",), ("merge (+bias/relu/stats)",))),
+    ("bench_branch", ["--batch", "4", "--iters", "3"], "stage", "STAGES",
+     (("column_merge",), ("column conv1(+relu+norm) only",
+                          "full cml column (from vfeat)",
+                          "full branch column"))),
+    ("bench_image", ["--batch", "4", "--iters", "3"], "stage", "STAGES",
+     (("fpn_gather",), ("gather", "head"))),
+    ("bench_resnet", ["--batch", "4", "--iters", "3"], "stage", "STAGES",
+     ((), ())),
 )
 TOOL_ARGS = []
 TOOL_TIMEOUT_S = 600
 
 
-def phase_tools(device):
-    """The three measurement tools as subprocesses, each exiting 0 and
-    printing every stage its JAX counterpart prints; then
+def run_tool_counted(module, args, kernels) -> tuple:
+    """``module.main(args)`` in this process with every kernel's count
+    set to 0 just before; returns (its JSON records, seconds, the counts
+    just after by kernel name)."""
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    out = run_tool(module.main, args)
+    seconds = time.perf_counter() - t0
+    recs = [json.loads(ln) for ln in out.splitlines()
+            if ln.startswith("{")]
+    return recs, seconds, {k.name: k.launches for k in kernels}
+
+
+def hold_tool_rows(tool, rows, tol_suffix) -> list:
+    """Each row of a sub-stage tool that calls a kernel's wrapper itself
+    (its ``fn`` a ``functools.partial`` of it) held against the kernel's
+    plain version on the row's own inputs, with the tolerance of the
+    kernel's record (TOL, ``tol_suffix`` "_bf16" for bfloat16): K4
+    against the plain scatter exactly, K1 against ``merge_reference``, K2
+    as ``k2_agreement`` holds it.  Each call must launch its kernel once.
+    Returns one record per such row."""
+    import inspect
+
+    import torch
+
+    from mvxnet_makise_tpu_torch.ops import column_merge as cm
+    from mvxnet_makise_tpu_torch.ops import gather as ga
+    from mvxnet_makise_tpu_torch.ops import scatter_grid as sg
+    from mvxnet_makise_tpu_torch.ops.scatter import scatter_voxels_to_grid
+
+    held = []
+    with torch.no_grad():
+        for row in rows:
+            func = getattr(row.fn, "func", None)
+            kernel = {sg.scatter_to_grid: sg.KERNEL,
+                      cm.merge_taps_fused: cm.KERNEL,
+                      ga.fpn_gather: ga.KERNEL}.get(func)
+            if kernel is None:
+                continue
+            call = inspect.signature(func).bind(*row.fn.args,
+                                                **row.fn.keywords)
+            call.apply_defaults()
+            a = call.arguments
+            launches0 = kernel.launches
+            got = row.fn()
+            launched = kernel.launches == launches0 + 1
+            if func is sg.scatter_to_grid:
+                want = scatter_voxels_to_grid(*call.args)
+                torch.cuda.synchronize()
+                tol = TOL["scatter_grid"]
+                err, _ = rel_err(got, want)
+                ok = torch.equal(got, want)
+                detail = {"tolerance": tol}
+                del want
+            elif func is cm.merge_taps_fused:
+                want_out, want_stats = merge_reference(*call.args)
+                torch.cuda.synchronize()
+                tol = TOL["column_merge" + tol_suffix]
+                err, rel = rel_err(got[0], want_out)
+                _, rel_stats = rel_err(got[1], want_stats)
+                ok = rel <= tol["out"] and rel_stats <= tol["stats"]
+                detail = {"rel_err": rel, "rel_err_stats": rel_stats,
+                          "tolerance": tol}
+                del want_out, want_stats
+            else:
+                tol = TOL["fpn_gather" + tol_suffix]
+                err, rel, steps, ok = k2_agreement(
+                    got, (a["features"], a["points_rc"], a["valid"],
+                          a["image_size"]),
+                    a["eps"], a["swapped_weights"], tol)
+                detail = {"rel_err": rel,
+                          "bf16_steps_vs_float32_sum": steps,
+                          "tolerance": tol}
+            del got
+            torch.cuda.empty_cache()
+            held.append({"tool": tool, "row": row.name,
+                         "kernel": kernel.name, "launched": launched,
+                         "max_abs_err": err, **detail,
+                         "ok": bool(ok and launched)})
+    return held
+
+
+def hold_tool_kernels(device) -> list:
+    """K4, K2 and K1 at the shapes the sub-stage tools give them in the
+    tools phase (batch TOOL_BATCH, bfloat16), each against its plain
+    version (``hold_tool_rows``): ``bench_kernels``' scatter and gather
+    (K2 at 12,288 x 35 points a frame), ``bench_micro``'s merge and
+    ``bench_image``'s gather.  ``bench_branch``'s K1 rows run the
+    merge inside ``ColumnConv1ReluNorm`` at ``bench_micro``'s shapes, and
+    ``bench_image``'s head the gather row's K2.  Fails unless every such
+    row was held and agreed."""
+    import torch
+
+    from mvxnet_makise_tpu_torch.config import Config
+    from mvxnet_makise_tpu_torch.tools import (
+        bench_image,
+        bench_kernels,
+        bench_micro,
+    )
+
+    # the tools' configurations at --batch TOOL_BATCH, no --config
+    cfg = Config(use_bf16=True, batch_size=TOOL_BATCH)
+    held = hold_tool_rows("bench_kernels", bench_kernels.rows(
+        Config(), device, torch.bfloat16, TOOL_BATCH), "_bf16")
+    held += hold_tool_rows("bench_micro", bench_micro.rows(
+        cfg, *bench_micro.inputs(cfg, device)), "_bf16")
+    held += hold_tool_rows("bench_image", bench_image.rows(
+        cfg, *bench_image.inputs(cfg, device)), "_bf16")
+    torch.cuda.empty_cache()
+    want = [("bench_kernels", "scatter_pallas"),
+            ("bench_kernels", "fpn_gather"),
+            ("bench_micro", "merge (+bias/relu/stats)"),
+            ("bench_image", "gather")]
+    check([(h["tool"], h["row"]) for h in held] == want,
+          f"the tools' kernel rows held: {held}, expected {want}")
+    return held
+
+
+def phase_tools(device, kernels):
+    """The measurement tools, each exiting 0 and printing every stage its
+    JAX counterpart prints: the first three as subprocesses, the five
+    sub-stage tools in this process, where the kernels' counts show which
+    kernels each launched (the rows that run one, and no other, say
+    ``"route": "cuda"``); then their kernels at the tools' shapes against
+    the plain versions (``hold_tool_kernels``); then
     ``utils.profiling.trace_context`` around one ``detect_frames`` writes
     a trace that names K1's and K2's kernels."""
     import glob
@@ -3090,21 +3251,45 @@ def phase_tools(device):
     from mvxnet_makise_tpu_torch.utils.profiling import trace_context
 
     torch.cuda.empty_cache()
+    # the in-process tools run under PyTorch's default cuDNN choice, as
+    # their own processes do: a Detector set cudnn.deterministic
+    torch.backends.cudnn.deterministic = False
     runs, ok = {}, True
-    for tool, args, key, constant in TOOL_RUNS:
-        module = f"mvxnet_makise_tpu_torch.tools.{tool}"
-        names = getattr(importlib.import_module(module), constant)
-        extra = TOOL_ARGS if tool.startswith("profile") else []
-        rc, recs, seconds, err = run_module(module, args + extra,
-                                            TOOL_TIMEOUT_S)
+    for tool, args, key, constant, expected in TOOL_RUNS:
+        module = importlib.import_module(
+            f"mvxnet_makise_tpu_torch.tools.{tool}")
+        names = getattr(module, constant)
+        extra = TOOL_ARGS if tool != "bench_host" else []
+        if expected is None:
+            rc, recs, seconds, err = run_module(module.__name__,
+                                                args + extra,
+                                                TOOL_TIMEOUT_S)
+            run, good = {"rc": rc}, rc == 0
+        else:
+            launched, kernel_rows = expected
+            recs, seconds, counts = run_tool_counted(module, args + extra,
+                                                     kernels)
+            torch.cuda.empty_cache()
+            err = ""
+            routed = [r[key] for r in recs if r.get("route") == "cuda"]
+            good = (all(counts[n] > 0 for n in launched)
+                    and not any(c for n, c in counts.items()
+                                if n not in launched)
+                    and routed == list(kernel_rows)
+                    and all(r.get("route") in ("cuda", None) for r in recs))
+            run = {"launches": counts, "cuda_rows": routed,
+                   "kernels_ok": good}
         printed = [r[key] for r in recs if key in r]
-        good = rc == 0 and all(n in printed for n in names)
+        good &= printed == list(names)
         ok &= good
         runs[tool] = {
-            "rc": rc, "seconds": seconds, "records": recs,
+            **run, "seconds": seconds, "records": recs,
             **({} if good else {"stderr": err,
                                 "missing": [n for n in names
                                             if n not in printed]})}
+    t0 = time.perf_counter()
+    held = hold_tool_kernels(device)
+    ok &= all(h["ok"] for h in held)
     cfg = Config(**FULL_OVERRIDES)
     det = Detector.create(cfg, checkpoint_epoch=0, seed=0, device=device)
     frames = make_frames(cfg, BATCH, seed=0)
@@ -3123,6 +3308,8 @@ def phase_tools(device):
              "fpn_gather_kernel": "fpn_gather_kernel" in text}
     ok &= len(traces) == 1 and all(named.values())
     rec = {"phase": "tools", "ok": bool(ok), "runs": runs,
+           "kernels_held": held,
+           "kernels_held_seconds": time.perf_counter() - t0,
            "trace": {"files": len(traces), "bytes": len(text),
                      "names": named}}
     emit(rec)
@@ -3222,7 +3409,7 @@ def main() -> int:
         shutil.rmtree(work)    # the tree and every phase's checkpoints
     phase_bench()
     par = phase_parallel(device, kernels)
-    phase_tools(device)
+    phase_tools(device, kernels)
 
     cm, pm = ("mvxnet_makise_tpu_torch/csrc/column_merge.cu",
               "mvxnet_makise_tpu/ops/pallas_column_merge.py")

@@ -15,12 +15,16 @@ with.  ``--fusion-mode point`` builds "point", which the port computes as
 On the card each stage is timed with CUDA events around ``--iters``
 back-to-back calls, ending in ``synchronize()``; with ``--device cpu``
 (the tests' tiny run) with the host clock.  One JSON record per stage:
-``stage``, ``ms_per_batch``, ``ms_per_frame``, ``device`` (the card's
-name, or "cpu"), ``first_call_s`` (the warm-up call, kernel builds
-included), and, where the stage runs PyTorch's matrix products or
-convolutions, ``gflop_per_batch``, ``gflop_per_frame`` and ``tflops``
-from ``torch.utils.flop_counter.FlopCounterMode`` (JAX's tool reads XLA's
-cost analysis; the count leaves out the hand-written kernels).
+``stage``, ``jax`` (the same name), ``ms_per_batch``, ``ms_per_frame``,
+``device`` (the card's name, or "cpu"), ``first_call_s`` (the warm-up
+call, kernel builds included), and, where the stage runs PyTorch's
+matrix products or convolutions, ``gflop_per_batch``, ``gflop_per_frame``
+and ``tflops`` from ``torch.utils.flop_counter.FlopCounterMode`` (JAX's
+tool reads XLA's cost analysis; the count leaves out the hand-written
+kernels).  Its
+records (:class:`Row`, :func:`time_row`), arguments (:func:`tool_parser`)
+and inputs (:func:`synthetic_batch`) serve ``tools.profile_train`` and
+the sub-stage tools ``tools.bench_*`` too.
 
 Usage: python -m mvxnet_makise_tpu_torch.tools.profile_components
            [--batch N] [--iters N] [--fusion-mode pm|point]
@@ -34,7 +38,16 @@ import argparse
 import copy
 import json
 import time
-from typing import Callable
+from typing import (
+    Any,
+    Callable,
+    Iterable,
+    List,
+    Mapping,
+    NamedTuple,
+    Tuple,
+    Union,
+)
 
 # the stage records, in order
 STAGES = ("voxelize", "resnet_fpn", "image_head_total", "fpn_gather",
@@ -58,11 +71,10 @@ def flop_count(fn: Callable) -> float:
     return float(counter.get_total_flops())
 
 
-def time_stage(name: str, fn: Callable, device, iters: int, batch: int,
-               flops: bool = True) -> dict:
-    """Time ``fn`` (a warm-up call, then ``iters`` back-to-back calls:
-    CUDA events on the card, the host clock on the CPU) and print its
-    record."""
+def time_call(fn: Callable, device, iters: int) -> Tuple[float, float]:
+    """(ms per call, seconds of the warm-up call) of ``fn``: a warm-up
+    call, then ``iters`` back-to-back calls timed with CUDA events on the
+    card (ending in ``synchronize()``), with the host clock on the CPU."""
     import torch
 
     cuda = device.type == "cuda"
@@ -79,20 +91,72 @@ def time_stage(name: str, fn: Callable, device, iters: int, batch: int,
             fn()
         end.record()
         torch.cuda.synchronize(device)
-        ms = start.elapsed_time(end) / iters
-    else:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        ms = (time.perf_counter() - t0) * 1e3 / iters
-    rec = {"stage": name, "ms_per_batch": ms, "ms_per_frame": ms / batch,
-           "device": device_name(device), "first_call_s": first}
-    gf = flop_count(fn) / 1e9 if flops else 0.0
+        return start.elapsed_time(end) / iters, first
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / iters, first
+
+
+class Row(NamedTuple):
+    """One timed row of a measurement tool: its name, the JAX tool's
+    label or labels it stands for, the call it times, the fields its
+    record adds, and per-second rates: ``rates["GBps"] = x`` reports
+    x / seconds per call.  A row that calls a kernel's wrapper itself
+    makes ``fn`` a ``functools.partial`` of it, so that a check can hand
+    the same inputs to the kernel's plain version."""
+    name: str
+    jax: Union[str, Tuple[str, ...]]
+    fn: Callable
+    fields: Mapping[str, Any] = {}
+    rates: Mapping[str, float] = {}
+    flops: bool = True
+
+
+def time_row(row: Row, device, iters: int, key: str = "stage",
+             batch: int = 0) -> dict:
+    """The record of ``row``: :func:`time_call`, then the GFLOP that
+    ``FlopCounterMode`` counts, in the caller's grad mode; per frame too
+    where ``batch`` is given.  On the card the allocator's cache is
+    emptied after it, as the row's outputs are gone."""
+    import torch
+
+    ms, first = time_call(row.fn, device, iters)
+    gf = flop_count(row.fn) / 1e9 if row.flops else 0.0
+    rec = {key: row.name, "jax": row.jax, "ms_per_batch": ms,
+           **({"ms_per_frame": ms / batch} if batch else {}),
+           "device": device_name(device), "first_call_s": first,
+           **row.fields,
+           **{k: v * 1e3 / ms for k, v in row.rates.items()}}
     if gf:
-        rec.update(gflop_per_batch=gf, gflop_per_frame=gf / batch,
-                   tflops=gf / ms)
-    print(json.dumps(rec), flush=True)
+        rec["gflop_per_batch"] = gf
+        if batch:
+            rec["gflop_per_frame"] = gf / batch
+        rec["tflops"] = gf / ms
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
     return rec
+
+
+def print_rows(rows: Iterable[Row], device, iters: int,
+               key: str = "stage", batch: int = 0) -> List[dict]:
+    """Time each row in turn (:func:`time_row`) without autograd, so what
+    a generator of rows computes between its rows keeps no graph either,
+    and print its record as one JSON line; returns the records."""
+    import torch
+
+    recs = []
+    with torch.no_grad():
+        for row in rows:
+            recs.append(time_row(row, device, iters, key, batch))
+            print(json.dumps(recs[-1]), flush=True)
+    return recs
+
+
+def kernel_route(device) -> str:
+    """What a kernel's wrapper runs on ``device``: the CUDA kernel on the
+    card, its plain PyTorch version on the CPU."""
+    return "cuda" if device.type == "cuda" else "plain"
 
 
 def synthetic_batch(cfg, device, with_boxes: bool = False):
@@ -125,20 +189,27 @@ def make_config(args, **fields):
     return Config(use_bf16=True, **fields)
 
 
-def main(argv=None) -> int:
+def tool_parser(iters: int) -> argparse.ArgumentParser:
+    """The arguments every measurement tool takes: ``--batch`` (8),
+    ``--iters``, ``--config`` and ``--device``."""
     p = argparse.ArgumentParser()
     p.add_argument("--batch", type=int, default=8)
-    p.add_argument("--iters", type=int, default=8)
-    p.add_argument("--fusion-mode", default="pm", choices=["pm", "point"])
-    p.add_argument("--cml-mode", default=None,
-                   choices=["dense3d", "banded", "column"],
-                   help="override the CML first-layer formulation "
-                        "(default: the configuration's)")
+    p.add_argument("--iters", type=int, default=iters)
     p.add_argument("--config", default=None,
                    help="a configuration file (default: Config(use_bf16="
                         "True)); the flags override it")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
+    return p
+
+
+def main(argv=None) -> int:
+    p = tool_parser(iters=8)
+    p.add_argument("--fusion-mode", default="pm", choices=["pm", "point"])
+    p.add_argument("--cml-mode", default=None,
+                   choices=["dense3d", "banded", "column"],
+                   help="override the CML first-layer formulation "
+                        "(default: the configuration's)")
     args = p.parse_args(argv)
     B = args.batch
 
@@ -167,8 +238,8 @@ def main(argv=None) -> int:
     points, nums, images = synthetic_batch(cfg, device)
 
     def stage(name, fn, flops=True):
-        with torch.no_grad():
-            time_stage(name, fn, device, args.iters, B, flops)
+        print_rows([Row(name, name, fn, flops=flops)], device, args.iters,
+                   batch=B)
 
     stage("voxelize", lambda: frames_to_batch(points, nums, images, cfg)
           .coords, flops=False)

@@ -31,9 +31,10 @@ import argparse
 import json
 
 from mvxnet_makise_tpu_torch.tools.profile_components import (
+    Row,
     make_config,
     synthetic_batch,
-    time_stage,
+    time_row,
 )
 
 STAGES = ("voxelize_assign", "loss_value", "loss_grad", "full_step",
@@ -117,7 +118,8 @@ def main(argv=None) -> int:
                                gt_mask=gms, gt_classes=gcs, perm=perm)
 
     def stage(name, fn, flops=True):
-        time_stage(name, fn, device, args.iters, B, flops)
+        print(json.dumps(time_row(Row(name, name, fn, flops=flops), device,
+                                  args.iters, batch=B)), flush=True)
 
     stage("voxelize_assign", lambda: _assign_batch(make_batch(), cfg),
           flops=False)
