@@ -27,8 +27,17 @@ Phases, each printed as one JSON line:
    run fails if it cannot be built).  The serving kernels' launch counts
    are set to 0 just before and read just after; a kernel the path never
    launched fails the run.
+   Each batch is decoded in one pass (``eval/decode.decode_batch``, one
+   batched rotated NMS) and read back with one copy per field.
 4. ``profile``: where one batch's time goes, device ms per module and
-   per kernel, and the device's idle share.
+   per kernel, and the device's idle share.  Then ``decode``: the same
+   maps of one batch decoded by a Python loop of ``decode_predictions``
+   (each frame's fields copied to the host) and by ``decode_batch``, in
+   turns (ABBA, DECODE_ROUNDS rounds): the detections must be bit-equal;
+   host-clock and CUDA-event ms per batch, kernels launched and
+   device-to-host copies per batch (a profiler window), and the peak
+   device memory above the maps.  It runs again in ``shipped_configs``
+   on ``configs/serving_economy.yaml`` at its batch 8.
 5. ``reference``: at a small configuration, the card's model maps are
    held against the same weights run in float64 on the CPU, where every
    kernel runs its plain PyTorch version.
@@ -96,7 +105,8 @@ Phases, each printed as one JSON line:
     float64 on the CPU, and at batch 1 maps bit-equal to
     ``norm_scope="sample"``'s.
 14. ``shipped_configs``: ``configs/serving_economy.yaml`` serves 16
-    frames through ``detect_stream`` at its batch 8;
+    frames through ``detect_stream`` at its batch 8 (then the ``decode``
+    phase on its first 8);
     ``configs/multiclass.yaml`` takes two train steps.
 15. ``weights``: a seeded model exported to the reference's layout and
     imported back (fused and LiDAR-only): the state dicts and the
@@ -249,6 +259,8 @@ SPIN_CYCLES = 2 * 10**8
 # the main path's run: FRAMES synthetic frames served in batches of BATCH
 FRAMES = 8
 BATCH = 4
+# the decode phase: rounds of the two decode routes in turns
+DECODE_ROUNDS = 6
 # training: FRAMES frames in batches of BATCH for one epoch, then
 # FIXED_STEPS steps on one fixed batch; the dense-3D CML at DENSE_BATCH
 FIXED_STEPS = 15
@@ -1111,6 +1123,129 @@ def phase_profile(det, frames, batch_size):
           "kernel_launches": sum(v[1] for v in kernels.values()),
           "top": [{"kernel": k[:100], "device_ms": v[0], "calls": v[1]}
                   for k, v in top[:15]]})
+
+
+# the CUDA API calls that launch a kernel (cuda* and cu*), as torch.profiler
+# records them on the host
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
+
+
+def decode_window(route) -> dict:
+    """One call of ``route`` under torch.profiler: the kernel launches the
+    host issued (runtime calls), the kernels the device trace holds and
+    their device ms, and the device-to-host copies (each one a host
+    synchronisation: the copies are to pageable memory)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        route()
+        torch.cuda.synchronize()
+    launches = kernels = copies = 0
+    busy_ms = 0.0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            launches += e.name in LAUNCH_CALLS
+        elif e.name.startswith("Memcpy DtoH"):
+            copies += 1
+        elif not e.name.startswith(("Memcpy", "Memset")):
+            kernels += 1
+            busy_ms += e.time_range.elapsed_us() / 1e3
+    return {"kernel_launches": launches, "kernels_traced": kernels,
+            "kernel_busy_ms": busy_ms, "dtoh_copies": copies}
+
+
+def phase_decode(det, frames, batch_size, config,
+                 rounds: int = DECODE_ROUNDS):
+    """The same maps (``det.maps`` of ``frames[:batch_size]``, as
+    ``run_batch`` decodes them: float32) decoded by two routes to host
+    detections: a Python loop of ``decode_predictions`` with each frame's
+    fields copied to the host (the serving path before ``decode_batch``)
+    and ``decode_batch`` with ``unpack`` (one copy per field).  The routes
+    must give bit-equal detections.  They run in turns (ABBA over
+    ``rounds`` rounds): host-clock and CUDA-event ms per batch; then one
+    profiler window each (kernels launched, device-to-host copies) and
+    the peak device memory above the maps (the (B, K, K) IoU and its
+    temporaries; B = 1 per frame)."""
+    import torch
+
+    from mvxnet_makise_tpu_torch.eval.decode import (
+        FrameDetections,
+        decode_batch,
+        decode_predictions,
+        unpack,
+    )
+
+    t_phase = time.perf_counter()
+    with torch.no_grad():
+        score, reg = (m.float() for m in det.maps(
+            *det.assemble(frames[:batch_size])))
+    kw = dict(score_threshold=det.score_threshold,
+              nms_iou_threshold=det.nms_iou_threshold,
+              pre_max_size=det.pre_max_size,
+              post_max_size=det.post_max_size)
+
+    def per_frame():
+        out = []
+        for s, r in zip(score, reg):
+            d = decode_predictions(s, r, det.anchors, **kw)
+            v = d.valid.cpu().numpy()
+            out.append(FrameDetections(boxes=d.boxes.cpu().numpy()[v],
+                                       scores=d.scores.cpu().numpy()[v],
+                                       classes=d.classes.cpu().numpy()[v]))
+        return out
+
+    def batched():
+        return unpack(decode_batch(score, reg, det.anchors, **kw))
+
+    routes = {"per_frame": per_frame, "batched": batched}
+    got = {name: fn() for name, fn in routes.items()}       # warm
+    check(same_detections(got["per_frame"], got["batched"]),
+          f"{config}: decode_batch differs from per-frame decode")
+    counts = check_detections(got["batched"], det.cfg)
+    times = {name: {"host_ms": [], "event_ms": []} for name in routes}
+    for i in range(rounds):
+        for name in (routes if i % 2 == 0 else reversed(list(routes))):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            out = routes[name]()
+            end.record()
+            torch.cuda.synchronize()
+            times[name]["host_ms"].append((time.perf_counter() - t0) * 1e3)
+            times[name]["event_ms"].append(start.elapsed_time(end))
+            check(same_detections(out, got["batched"]),
+                  f"{config}: {name} decode changed between runs")
+    rec = {"phase": "decode", "config": config, "batch_size": batch_size,
+           "rounds": rounds, "order": "ABBA (per_frame first in even "
+                                     "rounds)",
+           "pre_max_size": det.pre_max_size,
+           "detections_per_frame": counts, "bit_equal": True,
+           "card": gpu_line()}
+    base = torch.cuda.memory_allocated()
+    for name, fn in routes.items():
+        r = dict(times[name])
+        for key in ("host_ms", "event_ms"):
+            vals = sorted(r[key])
+            r[key + "_median"] = vals[len(vals) // 2]
+        r.update(decode_window(fn))
+        r["dtoh_copies_per_frame"] = r["dtoh_copies"] / batch_size
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        r["peak_above_maps_mib"] = (torch.cuda.max_memory_allocated()
+                                    - base) / 2**20
+        rec[name] = r
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    return rec
 
 
 def model_maps(det, arrays):
@@ -2094,9 +2229,11 @@ def phase_shipped_configs(device, kernels, work):
 
     econ = load_config(config_yaml(work, "serving_economy"))
     det = Detector.create(econ, checkpoint_epoch=0, seed=0, device=device)
-    serve = serve_stream(det, make_frames(econ, 2 * econ.batch_size,
-                                          seed=7),
-                         econ.batch_size, kernels)
+    econ_frames = make_frames(econ, 2 * econ.batch_size, seed=7)
+    serve = serve_stream(det, econ_frames, econ.batch_size, kernels)
+    phase_decode(det, econ_frames, econ.batch_size,
+                 "configs/serving_economy.yaml (bfloat16 maps, decoded "
+                 "in float32)")
     det.close()
     del det
     torch.cuda.empty_cache()
@@ -3382,6 +3519,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         drive = phase_detector(det, frames, BATCH, serving)
         phase_profile(det, frames, BATCH)
+        phase_decode(det, frames, BATCH, "default Config (float32)")
     finally:
         det.close()
     del det

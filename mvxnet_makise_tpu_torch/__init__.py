@@ -35,3 +35,11 @@ serve     : ``Detector``, the serving entry point.
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; on the CPU every kernel runs its plain PyTorch version.
 """
+
+__version__ = "0.1.0"
+
+from mvxnet_makise_tpu_torch.config import (  # noqa: F401
+    Config,
+    load_config,
+    parse_cli,
+)

@@ -27,6 +27,7 @@ backward pass (``models/voxelnet_pm``).
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import os
 from typing import Optional, Tuple
@@ -267,3 +268,30 @@ def load_config(path: Optional[str] = None, **overrides) -> Config:
                 kw[k] = tuple(v) if isinstance(v, list) else v
     kw.update(overrides)
     return Config(**kw)
+
+
+def parse_cli(argv=None) -> Tuple[Config, argparse.Namespace]:
+    """The reference's training command line (positional dataroot,
+    -n/--numepochs, -r/--resume) plus --config (a YAML path for
+    :func:`load_config`), --batch-size and --bf16: the ``Config`` those
+    arguments give, and the parsed arguments.  ``tools.train`` has a
+    parser of its own with the device and data options."""
+    p = argparse.ArgumentParser(description="MVXNet-Makise training")
+    p.add_argument("dataroot", nargs="?", default=None)
+    p.add_argument("-n", "--numepochs", type=int, default=10)
+    p.add_argument("-r", "--resume", type=int, default=0,
+                   help="epoch number to resume from")
+    p.add_argument("--config", type=str, default=None,
+                   help="optional YAML config path")
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--bf16", action="store_true")
+    args = p.parse_args(argv)
+
+    overrides = {"num_epochs": args.numepochs}
+    if args.dataroot:
+        overrides["data_root"] = args.dataroot
+    if args.batch_size:
+        overrides["batch_size"] = args.batch_size
+    if args.bf16:
+        overrides["use_bf16"] = True
+    return load_config(args.config, **overrides), args

@@ -1,12 +1,12 @@
 """ctypes bindings for the host feed's C++ kernels (``csrc/pointcloud.cpp``).
 
-Port of ``mvxnet_makise_tpu/data/native.py`` without ``crop_range``
-(``crop_project``, ``assemble_frame``, ``assemble_batch`` and the numpy
+Port of ``mvxnet_makise_tpu/data/native.py`` (``crop_range``,
+``crop_project``, ``assemble_frame``, ``assemble_batch`` and the numpy
 crop).  The package
 keeps its own copy of the C++ source; it is compiled with g++ on first
 use into the package's ``build/`` directory (listed in ``.gitignore``)
-and bound with ctypes.  Without g++, :func:`assemble_frame` falls back to
-numpy with the same boundary semantics.
+and bound with ctypes.  Without g++, each function falls back to numpy
+with the same boundary semantics.
 
 Trap kept from the original: the numpy fallback of :func:`assemble_frame`
 shuffles with ``np.random.default_rng`` while the C++ path uses its own
@@ -58,6 +58,8 @@ def _build() -> Optional[ctypes.CDLL]:
         os.replace(tmp, _LIB_PATH)
     dll = ctypes.CDLL(_LIB_PATH)
     i64, f32p = ctypes.c_int64, ctypes.POINTER(ctypes.c_float)
+    dll.crop_range.restype = i64
+    dll.crop_range.argtypes = [f32p, i64, f32p, f32p]
     dll.crop_project.restype = i64
     dll.crop_project.argtypes = [f32p, i64, f32p, f32p, f32p, f32p, f32p]
     dll.assemble_frame.restype = i64
@@ -94,6 +96,27 @@ def _prep(points, calib: Calib, velo_range, image_size):
     return pts, rect, proj, rng6, ims
 
 
+def _crop_range_numpy(points: np.ndarray, velo_range) -> np.ndarray:
+    pts = np.asarray(points[:, :4], dtype=np.float32)
+    lo = np.asarray(velo_range[:3], np.float32)
+    hi = np.asarray(velo_range[3:6], np.float32)
+    keep = np.all((pts[:, :3] >= lo) & (pts[:, :3] < hi), axis=1)
+    return pts[keep]
+
+
+def crop_range(points: np.ndarray, velo_range) -> np.ndarray:
+    """(N, >=4) -> (K, 4) axis-aligned range crop (half-open bounds), in
+    input order.  Native when the library builds, numpy otherwise."""
+    lib = get_lib()
+    if lib is None:
+        return _crop_range_numpy(points, velo_range)
+    pts = np.ascontiguousarray(points[:, :4], dtype=np.float32)
+    rng6 = np.asarray(velo_range, dtype=np.float32)
+    out = np.empty_like(pts)
+    kept = lib.crop_range(_fp(pts), len(pts), _fp(rng6), _fp(out))
+    return out[:kept].copy()
+
+
 def crop_project(points: np.ndarray, calib: Calib, velo_range,
                  image_size) -> np.ndarray:
     """(N, 4) -> (K, 6) [x y z refl row col]: fused range+frustum crop
@@ -114,11 +137,7 @@ def crop_project_numpy(points: np.ndarray, calib: Calib, velo_range,
     """Numpy version with the native kernel's boundary semantics:
     half-open range crop, positive camera depth, and the image bound
     ``0 <= uv < imsize - 1e-3``."""
-    pts = np.asarray(points[:, :4], dtype=np.float32)
-    lo = np.asarray(velo_range[:3], np.float32)
-    hi = np.asarray(velo_range[3:6], np.float32)
-    keep = np.all((pts[:, :3] >= lo) & (pts[:, :3] < hi), axis=1)
-    pts = pts[keep]
+    pts = _crop_range_numpy(points, velo_range)
 
     rect = np.asarray(calib.R0, np.float32) @ \
         np.asarray(calib.velo_to_cam, np.float32)

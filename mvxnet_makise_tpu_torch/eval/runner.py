@@ -22,9 +22,12 @@ from mvxnet_makise_tpu_torch.device import (
     use_full_f32,
 )
 from mvxnet_makise_tpu_torch.eval.ap import average_precision_3d
-from mvxnet_makise_tpu_torch.eval.decode import decode_predictions
+from mvxnet_makise_tpu_torch.eval.decode import (
+    FrameDetections,
+    decode_batch,
+    unpack,
+)
 from mvxnet_makise_tpu_torch.ops.assign import create_anchors
-from mvxnet_makise_tpu_torch.serve import FrameDetections
 from mvxnet_makise_tpu_torch.train.state import cast_for_compute
 from mvxnet_makise_tpu_torch.train.step import forward, frames_to_batch
 
@@ -72,14 +75,9 @@ def detect_for_eval(cfg: Config, frames: Sequence[KittiFrame],
             batch = frames_to_batch(pts.to(dev, dtype), nps.to(dev),
                                     imgs.to(dev, dtype), cfg)
             score, reg = forward(model, batch, cfg, with_images, tensors)
-            for s, r in zip(score[:real], reg[:real]):
-                d = decode_predictions(s.float(), r.float(), anchors,
-                                       score_threshold=score_threshold)
-                v = d.valid.cpu().numpy()
-                out.append(FrameDetections(
-                    boxes=d.boxes.cpu().numpy()[v],
-                    scores=d.scores.cpu().numpy()[v],
-                    classes=d.classes.cpu().numpy()[v]))
+            out += unpack(decode_batch(
+                score[:real].float(), reg[:real].float(), anchors,
+                score_threshold=score_threshold))
     finally:
         torch.backends.cudnn.deterministic = deterministic
         model.train(was_training)

@@ -109,13 +109,15 @@ def quad_intersection_area(q1: torch.Tensor,
 
 def rotated_iou_bev(boxes1: torch.Tensor,
                     boxes2: torch.Tensor) -> torch.Tensor:
-    """Pairwise rotated BEV IoU.  boxes1 (N, 7), boxes2 (M, 7) -> (N, M)."""
+    """Pairwise rotated BEV IoU.  boxes1 (..., N, 7), boxes2 (..., M, 7)
+    -> (..., N, M), the leading dimensions broadcast."""
     q1 = boxes3d_to_bev_corners(boxes1)
     q2 = boxes3d_to_bev_corners(boxes2)
-    a1 = boxes1[:, 3] * boxes1[:, 4]
-    a2 = boxes2[:, 3] * boxes2[:, 4]
-    inter = quad_intersection_area(q1[:, None], q2[None, :])
-    union = a1[:, None] + a2[None, :] - inter
+    a1 = boxes1[..., 3] * boxes1[..., 4]
+    a2 = boxes2[..., 3] * boxes2[..., 4]
+    inter = quad_intersection_area(q1[..., :, None, :, :],
+                                   q2[..., None, :, :, :])
+    union = a1[..., :, None] + a2[..., None, :] - inter
     return inter / torch.clamp(union, min=1e-12)
 
 

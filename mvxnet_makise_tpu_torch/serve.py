@@ -5,7 +5,9 @@ per batch is voxelize -> image branch (ResNet50-FPN, K2 gather, fusion
 MLP) -> point-major LiDAR branch (K1 column merge in the CML) -> RPN ->
 decode -> rotated NMS (the LiDAR-only detector, ``with_images=False``,
 skips the image branch; ``fusion_mode="voxel"`` encodes the voxels from
-LiDAR first and gathers one image feature per voxel).  Host work per
+LiDAR first and gathers one image feature per voxel).  Decode and NMS run
+in one pass over the batch (``eval/decode.decode_batch``), and each field
+of the batch's detections comes to the host in one copy.  Host work per
 frame is the C++ crop+project+shuffle+pad (``data/native.assemble_frame``).
 :meth:`Detector.detect_stream` assembles the next batch on a feed thread
 while the device runs the current one, and yields each batch's
@@ -41,7 +43,7 @@ from __future__ import annotations
 import itertools
 import os
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterable, List, Mapping, NamedTuple, Optional, Sequence
+from typing import Iterable, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -56,19 +58,15 @@ from mvxnet_makise_tpu_torch.device import (
 )
 from mvxnet_makise_tpu_torch.eval.decode import (
     Detections,
-    decode_predictions,
+    FrameDetections,
+    decode_batch,
+    unpack,
 )
 from mvxnet_makise_tpu_torch.models.mvxnet import build_model
 from mvxnet_makise_tpu_torch.ops.assign import create_anchors
 from mvxnet_makise_tpu_torch.train import checkpoint as ckpt
 from mvxnet_makise_tpu_torch.train.state import cast_for_compute
 from mvxnet_makise_tpu_torch.train.step import forward, frames_to_batch
-
-
-class FrameDetections(NamedTuple):
-    boxes: np.ndarray     # (K, 7) xyzlwhr (LiDAR frame)
-    scores: np.ndarray    # (K,)
-    classes: np.ndarray   # (K,) int — index into cfg.target_classes
 
 
 class Detector:
@@ -166,19 +164,20 @@ class Detector:
     # -- device path ----------------------------------------------------
 
     @torch.no_grad()
-    def run_batch(self, points, num_points, images) -> List[Detections]:
+    def run_batch(self, points, num_points, images) -> Detections:
         """Detections (on the device) for one assembled batch:
         points (B, P, 6), num_points (B,), images (B, H, W, 3), numpy or
-        tensors.  Under a mesh, those of this data rank's slice of the
-        batch (:meth:`detect_batch` gathers the whole)."""
+        tensors.  One :class:`Detections` whose fields carry a leading B
+        (``eval.decode.decode_batch`` of the float32 maps, as JAX's
+        pipeline returns them).  Under a mesh, those of this data rank's
+        slice of the batch (:meth:`detect_batch` gathers the whole)."""
         score, reg = self.maps(*self._local(points, num_points, images))
-        return [decode_predictions(
-            s.float(), r.float(), self.anchors,
+        return decode_batch(
+            score.float(), reg.float(), self.anchors,
             score_threshold=self.score_threshold,
             nms_iou_threshold=self.nms_iou_threshold,
             pre_max_size=self.pre_max_size,
             post_max_size=self.post_max_size)
-            for s, r in zip(score, reg)]
 
     def _local(self, points, num_points, images):
         """This data rank's rows of an assembled batch (all of it without
@@ -197,10 +196,10 @@ class Detector:
                              f"split over {n} data ranks")
         return shard_batch((points, num_points, images), self.mesh)
 
-    def _collect(self, dets: Sequence[Detections]) -> List[FrameDetections]:
+    def _collect(self, det: Detections) -> List[FrameDetections]:
         """Host detections of one batch run by :meth:`run_batch`: under a
         mesh, every data rank's slice gathered in frame order."""
-        out = self._unpack(dets)
+        out = unpack(det)
         if self.mesh is None:
             return out
         import torch.distributed as dist
@@ -255,17 +254,6 @@ class Detector:
         return native.assemble_batch(
             frames, cfg.velo_range, cfg.image_size, cfg.max_points,
             len(frames), pool=self._assemble_pool)
-
-    @staticmethod
-    def _unpack(dets: Sequence[Detections]) -> List[FrameDetections]:
-        out = []
-        for d in dets:
-            v = d.valid.cpu().numpy()
-            out.append(FrameDetections(
-                boxes=d.boxes.cpu().numpy()[v],
-                scores=d.scores.cpu().numpy()[v],
-                classes=d.classes.cpu().numpy()[v]))
-        return out
 
     def detect_batch(self, points, num_points,
                      images) -> List[FrameDetections]:
@@ -325,9 +313,10 @@ class Detector:
             dets = self.run_batch(points, num_points, images)
             # without a mesh the padding rows are dropped before the read
             # back; under one, after the gather
-            cur = (dets if self.mesh is not None else dets[:n_real], n_real)
+            if self.mesh is None:
+                dets = Detections(*(f[:n_real] for f in dets))
             if prev is not None:
                 yield from self._collect(prev[0])[:prev[1]]
-            prev = cur
+            prev = (dets, n_real)
         if prev is not None:
             yield from self._collect(prev[0])[:prev[1]]

@@ -20,7 +20,9 @@ its own formula, one bfloat16 step.  K1's backward
 forms the pre-ReLU cotangent with its adds in another order than
 autograd (1e-5) and sums the bias gradient over every cell in another
 order (1e-4 of the largest value).  K4 and K3's backward copy values:
-exact.
+exact.  The batched decode and NMS on the card pick the CPU's boxes
+(indices, valid, classes, scores exact); the decoded boxes sit within
+1e-5 (float32 exp, sin and cos may round one ulp apart).
 """
 
 import numpy as np
@@ -30,9 +32,12 @@ import torch
 from mvxnet_makise_tpu_torch.config import Config
 from mvxnet_makise_tpu_torch.data.kitti import KittiFrame
 from mvxnet_makise_tpu_torch.data.synthetic import synthetic_frame
+from mvxnet_makise_tpu_torch.eval.decode import decode_batch
+from mvxnet_makise_tpu_torch.geometry.boxes import decode_boxes
 from mvxnet_makise_tpu_torch.models.mvxnet import build_model
 from mvxnet_makise_tpu_torch.ops import column_merge, gather, scatter_grid
 from mvxnet_makise_tpu_torch.ops.assign import create_anchors
+from mvxnet_makise_tpu_torch.ops.nms import rotated_nms_bev_batch
 from mvxnet_makise_tpu_torch.ops.scatter import scatter_voxels_to_grid
 from mvxnet_makise_tpu_torch.serve import Detector
 from mvxnet_makise_tpu_torch.train import checkpoint as ckpt
@@ -644,6 +649,38 @@ def test_detector_on_card_matches_cpu(cuda):
         np.testing.assert_array_equal(a.scores, b.scores)
     for d in (gpu, cpu, ref):
         d.close()
+
+
+def test_decode_batch_on_card_matches_cpu(cuda):
+    """``decode_batch`` and its batched NMS on the card against the CPU on
+    the same float32 maps at the default Config's anchors, batch 4: the
+    NMS indices, ``valid``, classes and scores (picked, not computed)
+    exact, the boxes within 1e-5."""
+    cfg = Config()
+    anchors = torch.from_numpy(create_anchors(
+        cfg.feature_map_shape, cfg.velo_range, cfg.anchor_sizes))
+    H, W, A, _ = anchors.shape
+    rng = np.random.default_rng(5)
+    score = torch.from_numpy(
+        (rng.uniform(0, 1, (4, H, W, A)) ** 8).astype(np.float32))
+    reg = torch.from_numpy(
+        rng.normal(0, 0.2, (4, H, W, A * 7)).astype(np.float32))
+    got = decode_batch(score.to(cuda), reg.to(cuda), anchors.to(cuda))
+    want = decode_batch(score, reg, anchors)
+    boxes = decode_boxes(reg.reshape(4, H, W, A, 7), anchors)
+    kw = dict(iou_threshold=0.1, score_threshold=0.3)
+    got_nms = rotated_nms_bev_batch(boxes.reshape(4, -1, 7).to(cuda),
+                                    score.reshape(4, -1).to(cuda), **kw)
+    want_nms = rotated_nms_bev_batch(boxes.reshape(4, -1, 7),
+                                     score.reshape(4, -1), **kw)
+    for g, w in zip(got_nms, want_nms):
+        assert torch.equal(g.cpu(), w)
+    assert torch.equal(got.valid.cpu(), want.valid)
+    assert torch.equal(got.classes.cpu(), want.classes)
+    assert torch.equal(got.scores.cpu(), want.scores)
+    np.testing.assert_allclose(got.boxes.cpu().numpy(), want.boxes.numpy(),
+                               rtol=1e-5, atol=1e-5)
+    assert (want.valid.sum(1) > 10).all()
 
 
 def test_voxel_fusion_on_card_matches_cpu(cuda):

@@ -8,7 +8,8 @@ yields each batch's detections once that batch is read back, before the
 next batch runs; ``set_params`` swaps the weights of a live detector, in
 float32 and under ``use_bf16`` (whose bfloat16 copies must be cast again),
 so that it serves exactly what a fresh ``Detector`` on the new weights
-serves.
+serves; ``run_batch`` decodes a batch in one pass into what a one-frame
+decode of each frame's maps gives.
 """
 
 import numpy as np
@@ -17,6 +18,10 @@ import torch
 
 from mvxnet_makise_tpu_torch.config import Config
 from mvxnet_makise_tpu_torch.data.synthetic import synthetic_frame
+from mvxnet_makise_tpu_torch.eval.decode import (
+    FrameDetections,
+    decode_predictions,
+)
 from mvxnet_makise_tpu_torch.models.mvxnet import build_model
 from mvxnet_makise_tpu_torch.serve import Detector
 
@@ -92,6 +97,30 @@ def test_detect_stream_equals_detect_frames(det, frames):
     for i in range(0, len(frames), 2):
         want = det.detect_frames(frames[i:i + 2])
         assert all(_same(g, w) for g, w in zip(streamed[i:i + 2], want))
+
+
+def test_serving_decodes_the_batch_as_frames_decode_alone(det, frames):
+    """``run_batch`` decodes the whole batch in one pass: its detections,
+    through ``detect_frames`` and ``detect_stream``, equal a one-frame
+    ``decode_predictions`` of each frame's maps, bit for bit."""
+    arrays = det.assemble(frames[:3])
+    score, reg = det.maps(*arrays)
+    want = []
+    for s, r in zip(score, reg):
+        d = decode_predictions(s.float(), r.float(), det.anchors,
+                               score_threshold=det.score_threshold)
+        v = d.valid.numpy()
+        want.append(FrameDetections(boxes=d.boxes.numpy()[v],
+                                    scores=d.scores.numpy()[v],
+                                    classes=d.classes.numpy()[v]))
+    batched = det.run_batch(*arrays)
+    assert batched.boxes.shape == (3, det.post_max_size, 7)
+    assert batched.valid.shape == (3, det.post_max_size)
+    framed = det.detect_frames(frames[:3])
+    streamed = list(det.detect_stream(iter(frames[:3]), batch_size=3))
+    assert sum(len(w.scores) for w in want) > 0
+    assert all(_same(g, w) for g, w in zip(framed, want))
+    assert all(_same(g, w) for g, w in zip(streamed, want))
 
 
 def test_detect_stream_yields_a_batch_once_it_is_read_back(det, frames,
