@@ -21,6 +21,12 @@ Phases, each printed as one JSON line:
    record gives the launch configuration of the kernel's last call: grid,
    block, shared bytes and the registers ptxas gave each kernel (as
    ``-Xptxas -v`` reports them, read back with ``cudaFuncGetAttributes``).
+   K4's forward records (float32 on the CML's voxel rows, bfloat16 at
+   ``tools.bench_kernels``' shapes, batch 8) must be bit-equal to the
+   plain scatter, and add the C entry point alone on a preallocated grid
+   (``kernel_ms``), the device operations of one call under
+   torch.profiler (no sort, at most three) and a zero fill of the same
+   grid (``zero_fill_ms``) beside the one-call yardstick.
 3. ``detector``: the port's ``serve.Detector`` at the full default
    ``Config`` (random weights from a seed) serves synthetic frames through
    ``detect_frames`` and ``detect_stream``, fed by the C++ host feed (the
@@ -171,8 +177,10 @@ The kernel phases run each kernel in float32 and, for K1, K1's backward,
 K3, K3's backward and K2, again in bfloat16 (``*_bf16`` records) on the
 arguments ``configs/full_fusion.yaml``'s Detector hands them (batch 4,
 32768 points), caught inside its forward on the bfloat16 copies it
-computes with; K2 in bfloat16 is also held to the float32 sum of its own
-formula, one bfloat16 step per value.  K1's records take a seeded nonzero
+computes with, and K4 in bfloat16 at ``tools.bench_kernels``' shapes
+(its launches are the ``tools`` phase's ``bench_kernels`` run's); K2 in
+bfloat16 is also held to the float32 sum of its own formula, one bfloat16
+step per value.  K1's records take a seeded nonzero
 bias and hold the output bit-equal to the float32 sum rounded once
 (``merge_reference``); K1's backward records also time its first pass
 (pre and dbias) and K3's gather of pre apart, each beside its own bound.
@@ -237,6 +245,7 @@ TOL = {"column_merge": {"out": 1e-6, "stats": 1e-5},
        "merge_taps": {"out": 1e-6},
        "merge_taps_bwd": {"dy": 0.0},
        "scatter_grid": {"grid": 0.0},
+       "scatter_grid_bf16": {"grid": 0.0},
        "scatter_grid_bwd": {"d": 0.0},
        "fpn_gather": {"out": 1e-5},
        "fpn_gather_voxel": {"out": 1e-5},
@@ -265,6 +274,8 @@ DECODE_ROUNDS = 6
 # FIXED_STEPS steps on one fixed batch; the dense-3D CML at DENSE_BATCH
 FIXED_STEPS = 15
 DENSE_BATCH = 2
+# tools.bench_kernels' default batch: K4's bfloat16 record at its shapes
+BENCH_KERNELS_BATCH = 8
 # the kitti phase: a tree of KITTI_TRAIN + KITTI_VAL synthetic frames, the
 # tools run with these config fields (and a checkpoint directory of their
 # own) on the card
@@ -736,12 +747,56 @@ def phase_merge_taps(merge_args, grid_shape, suffix=""):
 # ------------------------------------------------------------- K4
 
 
-def phase_scatter_grid(scatter_args, grid_shape):
-    """K4 forward and backward against the plain scatter and its
-    autograd, on the voxel rows of the smoke's frames."""
+def bench_scatter_inputs(device):
+    """K4's arguments at ``tools.bench_kernels``' shapes: ``Config()``,
+    bfloat16, the tool's default batch of 8, its ``scatter_pallas`` row's
+    inputs (seed 0).  Returns ((features, coords, mask), grid shape)."""
+    import torch
+
+    from mvxnet_makise_tpu_torch.config import Config
+    from mvxnet_makise_tpu_torch.tools import bench_kernels
+
+    rows = bench_kernels.rows(Config(), device, torch.bfloat16,
+                              BENCH_KERNELS_BATCH)
+    try:
+        for row in rows:
+            if row.name == "scatter_pallas":
+                feats, coords, mask, grid = row.fn.args
+                return (feats, coords, mask), tuple(grid)
+    finally:
+        rows.close()
+    raise SmokeFailure("bench_kernels has no scatter_pallas row")
+
+
+def device_ops(fn) -> list:
+    """One call of ``fn`` under torch.profiler: the device operations it
+    ran (kernels and memsets, in order, with their device ms)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [{"name": e.name[:100], "ms": e.time_range.elapsed_us() / 1e3}
+            for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def phase_scatter_grid(scatter_args, grid_shape, name="scatter_grid",
+                       backward=True):
+    """K4 forward (and, with ``backward``, its backward) against the plain
+    scatter and its autograd, on the voxel rows of the smoke's frames or
+    on ``bench_scatter_inputs``.  The forward's record also holds the C
+    entry point alone on a preallocated grid (``kernel_ms``), a
+    profiler window over one call (its device operations: no sort, at
+    most three) and a zero fill of the grid's bytes (``zero_fill_ms``,
+    ``torch.zeros``, timed like the yardstick)."""
     import torch
 
     from mvxnet_makise_tpu_torch.ops import scatter_grid as sg
+    from mvxnet_makise_tpu_torch.ops.cuda_build import ptr, stream_handle
     from mvxnet_makise_tpu_torch.ops.scatter import scatter_voxels_to_grid
 
     vfeat, coords, vmask = scatter_args
@@ -756,7 +811,20 @@ def phase_scatter_grid(scatter_args, grid_shape):
     want = scatter_voxels_to_grid(vfeat, coords, vmask, grid_shape)
     torch.cuda.synchronize()
     err, rel = rel_err(got, want)
+    bit_equal = bool(torch.equal(got, want))
     del want
+    window = device_ops(
+        lambda: sg.scatter_to_grid(vfeat, coords, vmask, grid_shape))
+    sorting = [o["name"] for o in window if "sort" in o["name"].lower()]
+    lib = sg.LIBRARY.library()
+    stream = stream_handle(vfeat.device)
+
+    def kernel_only():
+        code = lib.scatter_grid(ptr(vfeat), ptr(coords), ptr(vmask),
+                                ptr(got), B, V, nx, ny, nz, C * es, stream)
+        if code:
+            raise SmokeFailure(f"scatter_grid failed with CUDA error {code}")
+
     cell = coords[..., 2] * (nx * ny) + coords[..., 0] * ny + coords[..., 1]
     frame = torch.arange(B, device=vfeat.device)[:, None]
     flat = (frame * (n_cells + 1)
@@ -767,22 +835,36 @@ def phase_scatter_grid(scatter_args, grid_shape):
         lambda: scatter_voxels_to_grid(vfeat, coords, vmask, grid_shape),
         lambda: torch.zeros((B * (n_cells + 1), C), dtype=vfeat.dtype,
                             device=vfeat.device).index_copy_(0, flat, rows))
+    times["kernel_ms"] = time_ms(kernel_only)
+    times["zero_fill_ms"] = time_ms(
+        lambda: torch.zeros(tuple(got.shape), dtype=vfeat.dtype,
+                            device=vfeat.device))
     n_bytes = (B * n_cells * C * es + n_valid * C * es + coords.numel() * 4
                + vmask.numel())
     bound_ms, bound_by = bound_of(n_bytes, 0)
-    fwd = {"phase": "kernel", "name": "scatter_grid",
-           "ok": rel <= TOL["scatter_grid"]["grid"],
+    fwd = {"phase": "kernel", "name": name,
+           "ok": (rel <= TOL[name]["grid"] and bit_equal and not sorting
+                  and len(window) <= 3),
            "shapes": {"features": list(vfeat.shape),
+                      "dtype": str(vfeat.dtype).removeprefix("torch."),
                       "grid": list(got.shape), "valid_rows": n_valid},
            "launch": launch_config(sg.KERNEL),
-           "max_abs_err": err, "rel_err": rel,
-           "tolerance": TOL["scatter_grid"], **times,
+           "max_abs_err": err, "rel_err": rel, "bit_equal": bit_equal,
+           "tolerance": TOL[name], **times,
+           "device_ops": window,
+           "device_ms": sum(o["ms"] for o in window),
            "library_call": "torch.zeros(...).index_copy_",
+           "zero_fill_call": "torch.zeros of the grid",
+           "card": gpu_line(),
            "bytes": n_bytes, "ops": 0, "bound_ms": bound_ms,
            "bound_by": bound_by}
     emit(fwd)
-    check(fwd["ok"], f"K4 disagrees with its plain version: {rel}")
+    check(fwd["ok"], f"K4 ({name}) disagrees with its plain version "
+                     f"({rel}, bit-equal {bit_equal}) or ran a sort or more "
+                     f"than three device operations: {window}")
     del got
+    if not backward:
+        return [fwd]
 
     g = torch.randn((B, nz, nx, ny, C), device=vfeat.device,
                     generator=torch.Generator(
@@ -822,7 +904,7 @@ def phase_scatter_grid(scatter_args, grid_shape):
     emit(bwd)
     check(bwd["ok"], f"K4's backward disagrees with its plain version: "
                      f"{rel}")
-    return fwd, bwd
+    return [fwd, bwd]
 
 
 # ------------------------------------------------------------- K2
@@ -2874,7 +2956,9 @@ def full_fusion_kernel_inputs(device):
 
 def phase_kernels_bf16(device) -> list:
     """K1, K1's backward, K3, K3's backward and K2 in bfloat16, on the
-    arguments the bfloat16 path hands them (``full_fusion_kernel_inputs``)."""
+    arguments the bfloat16 path hands them (``full_fusion_kernel_inputs``);
+    K4 in bfloat16 at ``tools.bench_kernels``' shapes (no shipped
+    configuration runs K4)."""
     cfg, merge_args, gather_args, eps, swapped = \
         full_fusion_kernel_inputs(device)
     emit({"phase": "kernel_inputs_bf16",
@@ -2889,7 +2973,9 @@ def phase_kernels_bf16(device) -> list:
             *phase_merge_taps(merge_args, cfg.voxel_shape, "_bf16"),
             phase_fpn_gather(gather_args, eps, swapped, "fpn_gather_bf16"),
             phase_fpn_gather_bwd(gather_args, eps, swapped,
-                                 "fpn_gather_bwd_bf16")]
+                                 "fpn_gather_bwd_bf16"),
+            *phase_scatter_grid(*bench_scatter_inputs(device),
+                                "scatter_grid_bf16", backward=False)]
 
 
 # ------------------------------------------------------------- parallel
@@ -3547,14 +3633,15 @@ def main() -> int:
         shutil.rmtree(work)    # the tree and every phase's checkpoints
     phase_bench()
     par = phase_parallel(device, kernels)
-    phase_tools(device, kernels)
+    tools = phase_tools(device, kernels)
 
     cm, pm = ("mvxnet_makise_tpu_torch/csrc/column_merge.cu",
               "mvxnet_makise_tpu/ops/pallas_column_merge.py")
     sg = "mvxnet_makise_tpu_torch/csrc/scatter_grid.cu"
     ga = "mvxnet_makise_tpu_torch/csrc/fpn_gather.cu"
     # name: (source, TPU kernel replaced, run whose launches count); the
-    # bfloat16 variants' main path is full_fusion's tools.train
+    # bfloat16 variants' main path is full_fusion's tools.train, K4's the
+    # tools phase's bench_kernels (no shipped configuration runs K4)
     table = {
         "column_merge": (cm, f"{pm}:469", "serve", drive),
         "column_merge_bwd": (cm, f"{pm}:494", "train", trained),
@@ -3575,7 +3662,11 @@ def main() -> int:
         "scatter_grid": (sg, "mvxnet_makise_tpu/ops/pallas_scatter.py:80",
                          "train_dense3d", dense),
         "scatter_grid_bwd": (sg, "mvxnet_makise_tpu/models/voxelnet.py:268",
-                             "train_dense3d", dense)}
+                             "train_dense3d", dense),
+        "scatter_grid_bf16": (sg,
+                              "mvxnet_makise_tpu/ops/pallas_scatter.py:80",
+                              "tools (bench_kernels)",
+                              tools["runs"]["bench_kernels"])}
     # K2's backward is plain PyTorch (JAX's is XLA, no pallas_call): its
     # records go beside the kernels', marked plain
     bwd_replaces = "mvxnet_makise_tpu/ops/pallas_gather.py:287"
@@ -3620,6 +3711,9 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **({"kernel_ms": r["kernel_ms"],
+                "zero_fill_ms": r["zero_fill_ms"]}
+               if "zero_fill_ms" in r else {}),
             **({"first_pass_ms": r["first_pass"]["ms"],
                 "first_pass_bound_ms": r["first_pass"]["bound_ms"],
                 "gather_ms": r["gather"]["ms"],

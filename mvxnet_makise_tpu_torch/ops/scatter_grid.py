@@ -27,13 +27,12 @@ from mvxnet_makise_tpu_torch.ops.scatter import scatter_voxels_to_grid
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIBRARY = CudaLibrary("scatter_grid.cu", {
-    "scatter_grid": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "scatter_grid": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "scatter_grid_bwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)})
 KERNEL = CudaKernel("scatter_grid", LIBRARY)
 BWD_KERNEL = CudaKernel("scatter_grid_bwd", LIBRARY)
 KERNELS = (KERNEL, BWD_KERNEL)
-_INVALID = 2 ** 31 - 1     # sorts after every cell id
-_CHUNK = 256               # grid cells per block of the forward kernel
+_MAX_CELLS = 2 ** 31 - 1   # cell ids are int32 in the kernels
 
 
 def _row_bytes(features: torch.Tensor) -> int:
@@ -49,25 +48,12 @@ class _ScatterToGrid(torch.autograd.Function):
     def forward(ctx, features, coords, mask, grid_shape):
         nx, ny, nz = grid_shape
         B, V, C = features.shape
-        n_cells = nx * ny * nz
-        row_bytes = _row_bytes(features)
-        cell = coords[..., 2] * (nx * ny) + coords[..., 0] * ny \
-            + coords[..., 1]
-        cell = torch.where(mask, cell, torch.full_like(cell, _INVALID))
-        sorted_cell, order = torch.sort(cell.to(torch.int32), dim=1)
-        order = order.to(torch.int32)
-        n_chunks = -(-n_cells // _CHUNK)
-        edges = torch.arange(0, (n_chunks + 1) * _CHUNK, _CHUNK,
-                             dtype=torch.int32, device=features.device)
-        starts = torch.searchsorted(
-            sorted_cell, edges.expand(B, n_chunks + 1).contiguous()
-        ).to(torch.int32)
         grid = torch.empty((B, nz, nx, ny, C), dtype=features.dtype,
                            device=features.device)
         if grid.numel():
-            KERNEL.launch("scatter_grid", ptr(features), ptr(order),
-                          ptr(sorted_cell), ptr(starts), ptr(grid), B, V,
-                          n_cells, _CHUNK, row_bytes,
+            KERNEL.launch("scatter_grid", ptr(features), ptr(coords),
+                          ptr(mask), ptr(grid), B, V, nx, ny, nz,
+                          _row_bytes(features),
                           stream_handle(features.device))
         ctx.save_for_backward(coords, mask)
         ctx.grid_shape = grid_shape
@@ -106,7 +92,8 @@ def scatter_to_grid(features: torch.Tensor, coords: torch.Tensor,
       features: (B, V, C) float32 or bfloat16 on the card, rows of a
         multiple of 16 bytes.
       coords: (B, V, 3) int32 (ix, iy, iz); mask: (B, V) bool.  Valid
-        cells must be unique per frame (the voxelizer's are).
+        cells must be unique per frame (the voxelizer's are); rows may
+        come in any order.
       grid_shape: (nx, ny, nz).
 
     Returns (B, nz, nx, ny, C), zeros where no valid row lands.
@@ -134,6 +121,6 @@ def scatter_to_grid(features: torch.Tensor, coords: torch.Tensor,
     if not features.is_contiguous():
         raise ValueError("features must be contiguous")
     nx, ny, nz = (int(g) for g in grid_shape)
-    if nx * ny * nz >= _INVALID:
+    if nx * ny * nz > _MAX_CELLS:
         raise ValueError(f"grid {grid_shape} has too many cells for int32")
     return _ScatterToGrid.apply(features, coords, mask, (nx, ny, nz))

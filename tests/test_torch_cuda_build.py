@@ -130,3 +130,31 @@ def test_every_kernel_source_keeps_a_launch_record(module):
         assert '#include "launch_record.cuh"' in src
         assert src.count("clear_launches();") >= 1
         assert src.count("record_launch(") >= src.count("<<<")
+
+
+@pytest.mark.parametrize("module", [column_merge, gather, scatter_grid])
+def test_argument_tables_match_the_c_entry_points(module):
+    """Each launcher the wrapper binds takes as many arguments in its
+    source as the wrapper's ctypes table gives it, pointers where the
+    source has pointers: ctypes would pass a short table's missing
+    arguments as garbage, and a pointer declared ``c_int`` cut to 32
+    bits."""
+    import re
+
+    libraries = {k.library for k in getattr(module, "KERNELS",
+                                            (module.KERNEL,))}
+    for library in libraries:
+        with open(library.source) as f:
+            src = f.read()
+        for fn, argtypes in library.functions.items():
+            m = re.search(r"\bint\s+" + fn + r"\(([^)]*)\)\s*\{", src)
+            assert m, f"{fn} not found in {library.source}"
+            params = m.group(1).strip()
+            macro = re.search(r"#define\s+" + params + r"\b((?:.*\\\n)*.*)",
+                              src)
+            if macro:     # a parameter list shared through a macro
+                params = macro.group(1).replace("\\\n", " ")
+            params = [p.strip() for p in params.split(",")]
+            assert len(params) == len(argtypes), fn
+            for p, t in zip(params, argtypes):
+                assert ("*" in p) == (t is ctypes.c_void_p), (fn, p, t)

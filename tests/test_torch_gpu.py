@@ -378,6 +378,127 @@ def test_scatter_grid_kernel_matches_plain(cuda, C, dtype):
     assert int((got != 0).any(-1).sum()) == int(mask.sum())
 
 
+def _k4_case(case, grid=(24, 40, 10)):
+    """(features, coords, mask) of one K4 case on the CPU, B = 2, C = 8:
+    "sorted" (the voxelizer's ascending (ix, iy, iz) order, masked rows
+    trailing with -1 coords), "shuffled", "masked_on_valid" (masked rows
+    whose coords name valid rows' cells), "edges" (the first and the last
+    cell, both sides of 256-cell boundaries: a float32 row of 8 channels
+    is 32 bytes, so 256 cells fill one 8 KB block of the fill kernel),
+    "all_valid_and_all_masked" (frame 0 every row valid, frame 1 every row
+    masked at real cells), "bfloat16" (shuffled, bfloat16 rows)."""
+    rng = np.random.default_rng(["sorted", "shuffled", "masked_on_valid",
+                                 "edges", "all_valid_and_all_masked",
+                                 "bfloat16"].index(case))
+    nx, ny, nz = grid
+    n_cells = nx * ny * nz
+    B, V, C = 2, 200, 8
+
+    def at(cells):
+        cells = np.asarray(cells)
+        return np.stack([(cells // ny) % nx, cells % ny,
+                         cells // (nx * ny)], -1)
+
+    coords = np.full((B, V, 3), -1, np.int32)
+    mask = np.zeros((B, V), bool)
+    n_valid = (150, 90)
+    if case == "edges":
+        edge = [0, 255, 256, 511, 512, 8191, 8192, n_cells - 1]
+        coords[0, :len(edge)] = at(edge)
+        coords[1, 0] = at([n_cells - 1])[0]
+        mask[0, :len(edge)] = mask[1, 0] = True
+    elif case == "all_valid_and_all_masked":
+        for b in range(B):
+            coords[b] = at(rng.choice(n_cells, V, replace=False))
+        mask[0] = True
+    else:
+        for b, n in enumerate(n_valid):
+            cells = np.sort(rng.choice(n_cells, n, replace=False))
+            coords[b, :n] = np.stack([cells // (ny * nz),
+                                      (cells // nz) % ny, cells % nz], -1)
+            mask[b, :n] = True
+            if case == "masked_on_valid":
+                coords[b, n:] = coords[b, rng.choice(n, V - n)]
+    if case not in ("sorted", "all_valid_and_all_masked"):
+        for b in range(B):
+            p = rng.permutation(V)
+            coords[b], mask[b] = coords[b][p], mask[b][p]
+    feats = torch.from_numpy(rng.normal(size=(B, V, C)).astype(np.float32))
+    dtype = torch.bfloat16 if case == "bfloat16" else torch.float32
+    return feats.to(dtype), torch.from_numpy(coords), torch.from_numpy(mask)
+
+
+def _poison_next_block(shape, dtype, device):
+    """Fill a block of the caching allocator with NaN and free it, so that
+    the next allocation of that size starts from NaN, not from an earlier
+    right answer: a cell the kernel leaves unwritten then shows."""
+    torch.full(shape, float("nan"), dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("case", ["sorted", "shuffled", "masked_on_valid",
+                                  "edges", "all_valid_and_all_masked",
+                                  "bfloat16"])
+def test_scatter_grid_kernel_cases(cuda, case):
+    """K4 bit-equal to the plain scatter, and its backward to autograd
+    through it, in any row order, with masked rows on valid cells, at the
+    grid's edges and block boundaries, on full and empty frames; one
+    counted launch per call, two kernels (fill, rows) per launch."""
+    grid = (24, 40, 10)
+    feats, coords, mask = [t.to(cuda) for t in _k4_case(case, grid)]
+    feats.requires_grad_()
+    shape = (2, grid[2], grid[0], grid[1], feats.shape[-1])
+    _poison_next_block(shape, feats.dtype, cuda)
+    before = (scatter_grid.KERNEL.launches, scatter_grid.BWD_KERNEL.launches)
+    got = scatter_grid.scatter_to_grid(feats, coords, mask, grid)
+    g = torch.randn(got.shape, generator=torch.Generator().manual_seed(1)
+                    ).to(cuda, feats.dtype)
+    (d,) = torch.autograd.grad(got, feats, g)
+    assert (scatter_grid.KERNEL.launches,
+            scatter_grid.BWD_KERNEL.launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    assert [len(r["grid"]) for r in scatter_grid.KERNEL.last_launch] == [3, 3]
+    want = scatter_voxels_to_grid(feats, coords, mask, grid)
+    (want_d,) = torch.autograd.grad(want, feats, g)
+    torch.cuda.synchronize()
+    assert got.shape == shape
+    assert torch.equal(got, want) and torch.equal(d, want_d)
+    assert int((got != 0).any(-1).sum()) == int(mask.sum())
+
+
+def test_scatter_grid_kernel_past_2_to_the_31_bytes(cuda):
+    """Three frames of the default grid in float32 with 128 channels,
+    2.16e9 bytes: rows at the last frame's last cells, beyond 2^31 bytes,
+    land there; one launch, bit-equal to the plain scatter."""
+    nx, ny, nz = grid = Config().voxel_shape
+    n_cells = nx * ny * nz
+    B, V, C = 3, 4096, 128
+    assert B * n_cells * C * 4 > 2 ** 31
+    rng = np.random.default_rng(7)
+    # each frame's last four cells, then random others
+    cells = np.stack([np.concatenate([
+        n_cells - 1 - np.arange(4),
+        rng.choice(n_cells - 4, V - 4, replace=False)]) for _ in range(B)])
+    coords = np.stack([(cells // ny) % nx, cells % ny, cells // (nx * ny)],
+                      -1).astype(np.int32)
+    mask = rng.random((B, V)) < 0.9
+    mask[:, :4] = True
+    feats = torch.from_numpy(rng.normal(size=(B, V, C)).astype(np.float32)
+                             ).to(cuda)
+    coords, mask = torch.from_numpy(coords).to(cuda), \
+        torch.from_numpy(mask).to(cuda)
+    _poison_next_block((B, nz, nx, ny, C), torch.float32, cuda)
+    before = scatter_grid.KERNEL.launches
+    got = scatter_grid.scatter_to_grid(feats, coords, mask, grid)
+    assert scatter_grid.KERNEL.launches == before + 1
+    last = got[-1].reshape(n_cells, C)[-1]
+    assert torch.equal(last, feats[-1, 0])
+    want = scatter_voxels_to_grid(feats, coords, mask, grid)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    del got, want
+    torch.cuda.empty_cache()
+
+
 def test_scatter_grid_refuses_what_it_does_not_take(cuda):
     feats, coords, mask = [t.to(cuda) for t in _voxels(5, 6, torch.float32)]
     with pytest.raises(ValueError, match="16-byte"):

@@ -50,34 +50,104 @@ def _voxels(seed, B=2, V=200, C=8, n_valid=(150, 0)):
     return feats, coords, mask
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_scatter_and_gradient_match_jax(seed):
-    feats, coords, mask = _voxels(seed)
-    g = np.random.default_rng(seed + 10).normal(
-        size=(2, GRID[2], GRID[0], GRID[1], feats.shape[-1])
-    ).astype(np.float32)
-    tf = torch.from_numpy(feats).requires_grad_()
+def _grid_coords(cells):
+    """(ix, iy, iz) of grid cells numbered as the grid lays them out,
+    iz * nx * ny + ix * ny + iy."""
+    nx, ny, _ = GRID
+    cells = np.asarray(cells)
+    return np.stack([(cells // ny) % nx, cells % ny, cells // (nx * ny)],
+                    -1).astype(np.int32)
+
+
+def _shuffle(rng, feats, coords, mask):
+    """Each frame's rows in a random order, masked rows among valid."""
+    for b in range(len(mask)):
+        p = rng.permutation(mask.shape[1])
+        feats[b], coords[b], mask[b] = feats[b][p], coords[b][p], mask[b][p]
+    return feats, coords, mask
+
+
+def _case(case):
+    """(features, coords, mask, dtype) of one parity case: seeds 0 and 1
+    are ``_voxels``; the others are named for what they hold."""
+    if case in (0, 1):
+        return (*_voxels(case), torch.float32)
+    rng = np.random.default_rng(100 + CASES.index(case))
+    nx, ny, nz = GRID
+    n_cells = nx * ny * nz
+    if case == "shuffled":
+        return (*_shuffle(rng, *_voxels(2, n_valid=(150, 90))),
+                torch.float32)
+    if case == "masked_on_valid":
+        feats, coords, mask = _voxels(3, n_valid=(150, 120))
+        for b in range(2):
+            valid = np.flatnonzero(mask[b])
+            coords[b, ~mask[b]] = coords[b, rng.choice(valid,
+                                                       (~mask[b]).sum())]
+        return (*_shuffle(rng, feats, coords, mask), torch.float32)
+    if case == "edges":
+        # the first and last cell, both sides of 256-cell and of JAX's
+        # 8192-cell block boundaries; frame 1 holds only the last cell
+        feats, coords, mask = _voxels(4, V=40, n_valid=(0, 0))
+        edge = [0, 255, 256, 511, 512, 8191, 8192, n_cells - 1]
+        coords[0, :len(edge)] = _grid_coords(edge)
+        coords[1, 0] = _grid_coords([n_cells - 1])[0]
+        mask[0, :len(edge)] = mask[1, 0] = True
+        return (*_shuffle(rng, feats, coords, mask), torch.float32)
+    if case == "all_valid_and_all_masked":
+        # frame 0: every row valid; frame 1: every row masked, its coords
+        # naming real cells
+        V = 300
+        coords = np.stack([_grid_coords(rng.choice(n_cells, V,
+                                                   replace=False))
+                           for _ in range(2)])
+        mask = np.array([[True] * V, [False] * V])
+        feats = rng.normal(size=(2, V, 8)).astype(np.float32)
+        return feats, coords, mask, torch.float32
+    assert case == "bfloat16"
+    return (*_shuffle(rng, *_voxels(5, n_valid=(150, 60))), torch.bfloat16)
+
+
+CASES = [0, 1, "shuffled", "masked_on_valid", "edges",
+         "all_valid_and_all_masked", "bfloat16"]
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_scatter_and_gradient_match_jax(case):
+    """The port's scatter and its gradient against JAX's Pallas kernel
+    (interpret mode), its XLA scatter and ``_pallas_scatter_diff``'s VJP:
+    copies, so exact, in every row order and dtype."""
+    feats, coords, mask, dtype = _case(case)
+    B, _, C = feats.shape
+    jdtype = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    tf = torch.from_numpy(feats).to(dtype).requires_grad_()
+    g = torch.from_numpy(np.random.default_rng(10 + CASES.index(case))
+                         .normal(size=(B, GRID[2], GRID[0], GRID[1], C))
+                         .astype(np.float32)).to(dtype)
     got = scatter_to_grid(tf, torch.from_numpy(coords),
                           torch.from_numpy(mask), GRID)
-    (got_d,) = torch.autograd.grad(got, tf, torch.from_numpy(g))
-    assert got.shape == (2, GRID[2], GRID[0], GRID[1], 8)
-    for b in range(2):
-        args = (jnp.asarray(feats[b]), jnp.asarray(coords[b]),
-                jnp.asarray(mask[b]))
+    (got_d,) = torch.autograd.grad(got, tf, g)
+    assert got.shape == (B, GRID[2], GRID[0], GRID[1], C)
+    assert got.dtype == got_d.dtype == dtype
+    got_np, got_d_np = got.detach().float().numpy(), got_d.float().numpy()
+    for b in range(B):
+        args = (jnp.asarray(tf[b].detach().float().numpy(), jdtype),
+                jnp.asarray(coords[b]), jnp.asarray(mask[b]))
+        np.testing.assert_array_equal(got_np[b], np.asarray(
+            pallas_scatter_to_grid(*args, GRID, interpret=True),
+            np.float32))
         np.testing.assert_array_equal(
-            got[b].detach().numpy(),
-            np.asarray(pallas_scatter_to_grid(*args, GRID, interpret=True)))
-        np.testing.assert_array_equal(got[b].detach().numpy(),
-                                      np.asarray(jax_scatter(*args, GRID)))
+            got_np[b], np.asarray(jax_scatter(*args, GRID), np.float32))
         want, vjp = jax.vjp(lambda f: _pallas_scatter_diff(
             f, args[1], args[2], GRID), args[0])
-        np.testing.assert_array_equal(got[b].detach().numpy(),
-                                      np.asarray(want))
-        np.testing.assert_array_equal(got_d[b].numpy(),
-                                      np.asarray(vjp(jnp.asarray(g[b]))[0]))
+        np.testing.assert_array_equal(got_np[b],
+                                      np.asarray(want, np.float32))
+        (want_d,) = vjp(jnp.asarray(g[b].float().numpy(), jdtype))
+        np.testing.assert_array_equal(got_d_np[b],
+                                      np.asarray(want_d, np.float32))
     # every valid row landed, masked rows got no gradient
     assert int((got != 0).any(-1).sum()) == int(mask.sum())
-    assert not got_d.numpy()[~mask].any()
+    assert not got_d_np[~mask].any()
 
 
 def test_scatter_to_grid_refuses_other_devices():
