@@ -139,17 +139,19 @@ Phases, each printed as one JSON line:
     0 with a last line whose ``value`` is positive; with ``--rpn
     no-such-trunk`` it must exit nonzero.
 18. ``parallel``: ``parallel.initialize_distributed`` starts a world of
-    one NCCL rank (a FileStore in a temporary directory) and
-    ``make_mesh((1, 1))`` a ('data', 'model') mesh; ``Detector(mesh=...)``
-    serves the default ``Config`` at full width (batch 4, 8 frames,
-    ``detect_frames`` and ``detect_stream``) with detections bit-equal to
-    the meshless Detector's; one mesh train step
-    (``make_train_step(mesh=...)``) against two plain steps under
-    PyTorch's deterministic algorithms: its loss and parameters no further
-    from the plain step's than the two plain steps are from each other
-    (0: bit for bit); a profiler window over a mesh step shows NCCL; ms per
-    frame and per step with and without the mesh, in turns; the kernels'
-    counts set to 0 just before the mesh serving and the mesh step.
+    one NCCL rank (a FileStore in a temporary directory), and
+    ``tools.multicard.rank_checks`` runs its world-1 plan there, the
+    checks its four-card run makes (``--cards 4``) on a ``(1, 1)`` mesh:
+    ``Detector(mesh=...)`` serves the default ``Config`` at full width
+    (batch 4, 8 frames, ``detect_frames`` and ``detect_stream``) with
+    maps and detections bit-equal to the meshless Detector's; one mesh
+    train step (``make_train_step(mesh=...)``) under PyTorch's
+    deterministic algorithms equals the one-card step bit for bit (loss,
+    metrics, gradients; the parameters within AdamW's bound); one K1 and
+    one K2 call held against their plain versions; a profiler window over
+    a mesh step shows NCCL; ms per frame and per step with and without
+    the mesh, in turns; the kernels' counts set to 0 just before the mesh
+    serving and the mesh step and read just after.
 19. ``tools``: ``tools.bench_host``, ``tools.profile_components --batch 4
     --iters 3`` and ``tools.profile_train --batch 4 --iters 2`` as
     subprocesses, each exiting 0 and printing every stage of its JAX
@@ -2981,210 +2983,73 @@ def phase_kernels_bf16(device) -> list:
 # ------------------------------------------------------------- parallel
 
 
-def mesh_step_inputs(cfg, device):
-    """One training batch of BATCH synthetic frames (fixed shuffle) as a
-    ``train.step.Batch`` on ``device``, and the anchors."""
-    import torch
-
-    from mvxnet_makise_tpu_torch.ops.assign import create_anchors
-    from mvxnet_makise_tpu_torch.train.step import frames_to_batch
-
-    pts, nums, imgs, gts, gms, gcs, perm = fixed_batch(
-        cfg, make_train_frames(cfg, BATCH, seed=3), device)
-    batch = frames_to_batch(pts, nums, imgs, cfg, gt_boxes=gts,
-                            gt_mask=gms, gt_classes=gcs, perm=perm)
-    anchors = torch.from_numpy(create_anchors(
-        cfg.feature_map_shape, cfg.velo_range, cfg.anchor_sizes)).to(device)
-    return batch, anchors
-
-
-def nccl_evidence(prof) -> dict:
-    """Events of a ``torch.profiler`` window that name NCCL: device
-    kernels and host-side collective calls."""
-    from torch.autograd import DeviceType
-
-    kernels, calls = set(), set()
-    for e in prof.events():
-        if "nccl" not in e.name.lower():
-            continue
-        (kernels if e.device_type == DeviceType.CUDA else calls).add(
-            e.name[:80])
-    return {"device_kernels": sorted(kernels), "host_calls": sorted(calls)}
-
-
-def phase_parallel(device, kernels):
-    """The slice's main path: the default Config served and trained
-    through a ('data', 'model') mesh of one NCCL rank
-    (``parallel.initialize_distributed``, ``make_mesh((1, 1))``).
-    ``Detector(mesh=...)`` serves FRAMES frames in batches of BATCH,
-    detections bit-equal to the meshless Detector's; one mesh train step
-    (``make_train_step(mesh=...)``) gives the plain step's loss and
-    parameters (held to the plain step's own run-to-run distance, 0 under
-    cuDNN's deterministic algorithms); a profiler window over a mesh step
-    shows NCCL; the kernels' counts are set to 0 just before the mesh
-    serving and the mesh step and read just after; ms per frame and per
-    step with and without the mesh, in turns."""
-    import copy
+def phase_parallel(device):
+    """The parallel path through ``tools.multicard``'s per-rank checks at
+    world 1: a ('data', 'model') mesh of one NCCL rank
+    (``parallel.initialize_distributed``, ``make_mesh((1, 1))``) at the
+    default Config.  ``Detector(mesh=...)`` serves FRAMES frames in
+    batches of BATCH, maps and detections bit-equal to the meshless
+    Detector's (``serve_data``); one mesh train step
+    (``make_train_step(mesh=...)``) equals the one-card step bit for bit
+    under PyTorch's deterministic algorithms (``steps``); the kernels'
+    counts are set to 0 just before the mesh serving and the mesh step
+    and read just after, and one K1 and one K2 call are held against
+    their plain versions (``kernels``); ms per frame and per step with
+    and without the mesh in turns, and a profiler window over a mesh step
+    that shows NCCL (``cost``).  The four-card run of the same checks is
+    ``python3 -m mvxnet_makise_tpu_torch.tools.multicard --cards 4``."""
+    import dataclasses
     import tempfile
     from datetime import timedelta
 
-    import torch
     import torch.distributed as dist
-    from torch.profiler import ProfilerActivity, profile
 
-    from mvxnet_makise_tpu_torch.config import Config
-    from mvxnet_makise_tpu_torch.models.mvxnet import build_model
-    from mvxnet_makise_tpu_torch.parallel import make_mesh, shard_params
     from mvxnet_makise_tpu_torch.parallel.distributed import (
         initialize_distributed,
-        is_primary,
     )
-    from mvxnet_makise_tpu_torch.serve import Detector
-    from mvxnet_makise_tpu_torch.train.state import TrainState
-    from mvxnet_makise_tpu_torch.train.step import make_train_step
+    from mvxnet_makise_tpu_torch.tools import multicard
 
-    cfg = Config(**FULL_OVERRIDES)
+    plan = dataclasses.replace(multicard.WORLD1_PLAN,
+                               fields=dict(FULL_OVERRIDES), frames=FRAMES,
+                               batch=BATCH)
     store = tempfile.mkdtemp(prefix="mesh_store_")
     started = initialize_distributed(
         f"file://{store}/store", 1, 0, device=device,
         timeout=timedelta(seconds=300))
     try:
-        mesh = make_mesh((1, 1))
-        frames = make_frames(cfg, FRAMES, seed=0)
-        plain = Detector.create(cfg, checkpoint_epoch=0, seed=0,
-                                device=device)
-        meshed = Detector.create(cfg, checkpoint_epoch=0, seed=0,
-                                 device=device, mesh=mesh)
-        plain.warm((BATCH,))
-        meshed.warm((BATCH,))
-        for k in kernels:
-            k.launches = 0
-        got = meshed.detect_frames(frames[:BATCH])
-        streamed = list(meshed.detect_stream(frames, batch_size=BATCH))
-        serve_launches = {k.name: k.launches for k in kernels}
-        want = plain.detect_frames(frames[:BATCH])
-        want_stream = list(plain.detect_stream(frames, batch_size=BATCH))
-        same_serve = (same_detections(got, want)
-                      and same_detections(streamed, want_stream))
-        check_detections(streamed, cfg)
-
-        def frame_ms(det):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for i in range(0, FRAMES, BATCH):
-                det.detect_frames(frames[i:i + BATCH])
-            torch.cuda.synchronize()
-            return (time.perf_counter() - t0) * 1e3 / FRAMES
-
-        serve_turns = {"plain": [], "mesh": []}
-        for name in ("plain", "mesh", "mesh", "plain"):
-            serve_turns[name].append(frame_ms(plain if name == "plain"
-                                              else meshed))
-        for d in (plain, meshed):
-            d.close()
-        del plain, meshed
-        torch.cuda.empty_cache()
-
-        # training: PyTorch's deterministic algorithms (cuDNN's, and
-        # sorted index accumulation in place of atomics), so a step has
-        # one result to compare with
-        deterministic = torch.backends.cudnn.deterministic
-        torch.backends.cudnn.deterministic = True
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        batch, anchors = mesh_step_inputs(cfg, device)
-        base = build_model(cfg, seed=0, device=device).train()
-
-        def fresh(with_mesh):
-            model = copy.deepcopy(base)
-            if with_mesh:
-                shard_params(model, mesh)
-            state = TrainState.create(cfg, model)
-            return state, make_train_step(cfg, anchors,
-                                          mesh=mesh if with_mesh else None)
-
-        def one_step(with_mesh, count=False):
-            state, step = fresh(with_mesh)
-            if count:
-                for k in kernels:
-                    k.launches = 0
-            m = step(state, batch)
-            torch.cuda.synchronize()
-            launches = {k.name: k.launches for k in kernels}
-            return float(m["total_loss"]), {
-                n: p.detach().clone() for n, p in
-                state.model.named_parameters()}, launches
-
-        loss_m, params_m, train_launches = one_step(True, count=True)
-        loss_a, params_a, _ = one_step(False)
-        loss_b, params_b, _ = one_step(False)
-        torch.use_deterministic_algorithms(False)
-
-        def dist_(pa, pb):
-            return max(float((pa[n].double() - pb[n].double()).abs().max())
-                       for n in pa)
-
-        own = max(abs(loss_a - loss_b), dist_(params_a, params_b))
-        mesh_vs_plain = max(abs(loss_m - loss_a), dist_(params_m, params_a))
-        same_step = mesh_vs_plain <= own
-        del params_m, params_a, params_b
-
-        state_m, step_m = fresh(True)
-        step_m(state_m, batch)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            step_m(state_m, batch)
-            torch.cuda.synchronize()
-        nccl = nccl_evidence(prof)
-        state_p, step_p = fresh(False)
-        step_p(state_p, batch)
-
-        def step_ms(step, state):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(2):
-                step(state, batch)
-            torch.cuda.synchronize()
-            return (time.perf_counter() - t0) * 1e3 / 2
-
-        step_turns = {"plain": [], "mesh": []}
-        for name in ("plain", "mesh", "mesh", "plain"):
-            step_turns[name].append(
-                step_ms(step_p, state_p) if name == "plain"
-                else step_ms(step_m, state_m))
-        torch.backends.cudnn.deterministic = deterministic
-        primary = is_primary()
+        res = multicard.rank_checks(plan, device, emit=False)
     finally:
         if started:
             dist.destroy_process_group()
-    needed_serve = ("column_merge", "fpn_gather")
-    needed_train = ("column_merge", "column_merge_bwd", "merge_taps_bwd",
-                    "fpn_gather")
-    missing = ([n for n in needed_serve if serve_launches[n] == 0]
-               + [n for n in needed_train if train_launches[n] == 0])
-    ok = (same_serve and same_step and primary and not missing
-          and bool(nccl["device_kernels"] or nccl["host_calls"]))
-    mean = lambda v: sum(v) / len(v)  # noqa: E731
+    rank = {name: r["ranks"][0] for name, r in res.items()}
+    serve, steps, kern, cost = (rank["serve_data"], rank["steps"],
+                                rank["kernels"], rank["cost"])
+    step = steps["steps"]["1x1 sample"]
+    ok = all(r["ok"] for r in res.values())
     rec = {"phase": "parallel", "ok": ok,
            "config": "default Config (full width, float32), batch "
                      f"{BATCH}, {FRAMES} synthetic frames",
-           "world": 1, "backend": "nccl", "mesh": [1, 1],
-           "serve_bit_equal": same_serve,
-           "step_loss": {"mesh": loss_m, "plain": [loss_a, loss_b]},
-           "step_mesh_vs_plain_max_abs": mesh_vs_plain,
-           "step_plain_vs_plain_max_abs": own,
-           "nccl": nccl,
-           "serve_ms_per_frame_turns": serve_turns,
-           "serve_ms_per_frame": {k: mean(v) for k, v in
-                                  serve_turns.items()},
-           "step_ms_turns": step_turns,
-           "step_ms": {k: mean(v) for k, v in step_turns.items()},
-           "serve_launches": serve_launches,
-           "train_launches": train_launches}
+           "world": 1, "backend": rank["init"]["backend"], "mesh": [1, 1],
+           "checks": {name: r["ok"] for name, r in res.items()},
+           "serve_bit_equal": serve["maps_bit_equal_meshless_same_rows"]
+           and serve["detections_equal_meshless_same_rows"]
+           and serve["stream_equal_meshless_same_rows"],
+           "step_loss": {"mesh": step["loss"],
+                         "plain": step["loss_one_card"]},
+           "step_mesh_vs_plain": step["vs_one_card_by_shard"],
+           "step_tolerance": step["by_shard_tolerance"],
+           "nccl": cost["nccl"], "profiled_step": cost["profiled_step"],
+           "serve_ms_per_frame_turns": cost["serve_ms_per_frame_turns"],
+           "serve_ms_per_frame": cost["serve_ms_per_frame"],
+           "step_ms_turns": cost["step_ms_turns"],
+           "step_ms": cost["step_ms"],
+           "kernels_vs_plain": kern["rel_err"],
+           "serve_launches": kern["serve_launches"],
+           "train_launches": kern["train_launches"]}
     emit(rec)
-    check(ok, f"parallel phase failed: serve equal {same_serve}, step "
-              f"{mesh_vs_plain} vs own {own}, missing launches {missing}, "
-              f"nccl {nccl}")
+    check(ok, "parallel phase failed: "
+              + json.dumps({name: r for name, r in rank.items()
+                            if not r["ok"]})[:4000])
     return rec
 
 
@@ -3632,7 +3497,7 @@ def main() -> int:
     finally:
         shutil.rmtree(work)    # the tree and every phase's checkpoints
     phase_bench()
-    par = phase_parallel(device, kernels)
+    par = phase_parallel(device)
     tools = phase_tools(device, kernels)
 
     cm, pm = ("mvxnet_makise_tpu_torch/csrc/column_merge.cu",

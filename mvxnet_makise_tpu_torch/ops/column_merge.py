@@ -196,7 +196,8 @@ def merge_taps_backward(g: torch.Tensor, col_cy: torch.Tensor,
     if dy.numel():
         TAPS_BWD_KERNEL.launch(_fn("merge_taps_bwd", g.dtype), ptr(g),
                                ptr(col_cy), ptr(bounds), ptr(dy), B, V, nx,
-                               ny, R, stream_handle(g.device))
+                               ny, R, stream_handle(g.device),
+                               device=g.device)
     return dy
 
 
@@ -209,7 +210,8 @@ class _MergeTaps(torch.autograd.Function):
         if out.numel():
             TAPS_KERNEL.launch(_fn("merge_taps", y.dtype), ptr(y),
                                ptr(col_cy), ptr(bounds), ptr(out), B, V, nx,
-                               ny, R, stream_handle(y.device))
+                               ny, R, stream_handle(y.device),
+                               device=y.device)
         ctx.save_for_backward(col_cy, bounds)
         ctx.grid_shape, ctx.V = grid_shape, V
         return out
@@ -238,7 +240,7 @@ class _MergeTapsFused(torch.autograd.Function):
             KERNEL.launch(_fn("merge_fused", y.dtype), ptr(y), ptr(col_cy),
                           ptr(bounds), ptr(bias_packed), ptr(out),
                           ptr(stats), ptr(partial), B, V, nx, ny, R,
-                          stream_handle(y.device))
+                          stream_handle(y.device), device=y.device)
         ctx.save_for_backward(out, col_cy, bounds)
         ctx.grid_shape, ctx.V = grid_shape, V
         return out, stats
@@ -280,7 +282,8 @@ def merge_fused_pre(out: torch.Tensor, g_out: torch.Tensor,
                           device=out.device)
     BWD_KERNEL.launch(_fn("merge_fused_bwd", out.dtype), ptr(out),
                       ptr(g_out), ptr(g_stats), ptr(pre), ptr(partial),
-                      ptr(dbias), B, nx, ny, R, stream_handle(out.device))
+                      ptr(dbias), B, nx, ny, R, stream_handle(out.device),
+                      device=out.device)
     return pre, dbias
 
 

@@ -157,17 +157,25 @@ class CudaKernel:
         self.launches = 0
         self.last_launch: List[dict] = []
 
-    def launch(self, function: str, *args) -> None:
-        """Call one exported launcher; raise if CUDA reports an error."""
+    def launch(self, function: str, *args, device) -> None:
+        """Call one exported launcher with ``device`` (the card its
+        tensors lie on; -1 leaves the current card) made the current card
+        while it runs; raise if CUDA reports an error.  The C entry points
+        launch on the stream they are given and query the current card's
+        attributes: a launch on another card than the current one would
+        run on the current card, on pointers of the other."""
+        import torch
+
         lib = self.library.library()
-        code = getattr(lib, function)(*args)
-        if code != 0:
-            msg = lib.kernel_error_string(code).decode()
-            raise RuntimeError(
-                f"{self.name}: {function} failed with CUDA error {code} "
-                f"({msg})")
+        with torch.cuda.device(device):
+            code = getattr(lib, function)(*args)
+            if code != 0:
+                msg = lib.kernel_error_string(code).decode()
+                raise RuntimeError(
+                    f"{self.name}: {function} failed with CUDA error "
+                    f"{code} ({msg})")
+            self.last_launch = read_launches(lib)
         self.launches += 1
-        self.last_launch = read_launches(lib)
 
 
 def build_all(kernels: Sequence[CudaKernel]) -> Dict[str, dict]:

@@ -245,5 +245,6 @@ def _fpn_gather_forward(features, points_rc, valid, image_size, eps,
     if out.numel() == 0:
         return out
     KERNEL.launch(fn, *level_args, ptr(points_rc), ptr(valid), ptr(out), B,
-                  P, eps, int(bool(swapped_weights)), stream_handle(dev))
+                  P, eps, int(bool(swapped_weights)), stream_handle(dev),
+                  device=dev)
     return out

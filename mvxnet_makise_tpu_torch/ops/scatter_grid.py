@@ -54,7 +54,8 @@ class _ScatterToGrid(torch.autograd.Function):
             KERNEL.launch("scatter_grid", ptr(features), ptr(coords),
                           ptr(mask), ptr(grid), B, V, nx, ny, nz,
                           _row_bytes(features),
-                          stream_handle(features.device))
+                          stream_handle(features.device),
+                          device=features.device)
         ctx.save_for_backward(coords, mask)
         ctx.grid_shape = grid_shape
         return grid
@@ -79,7 +80,7 @@ def scatter_to_grid_backward(g: torch.Tensor, coords: torch.Tensor,
     if d.numel():
         BWD_KERNEL.launch("scatter_grid_bwd", ptr(g), ptr(coords), ptr(mask),
                           ptr(d), B, V, nx, ny, nz, _row_bytes(d),
-                          stream_handle(g.device))
+                          stream_handle(g.device), device=g.device)
     return d
 
 

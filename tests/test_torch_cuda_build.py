@@ -72,8 +72,8 @@ def test_launch_counts_and_records(tmp_path, monkeypatch):
     lib._lib = _FakeLib()
     kernel = cuda_build.CudaKernel("k", lib)
     assert kernel.launches == 0 and kernel.last_launch == []
-    kernel.launch("launch_me", ctypes.c_int(1))
-    kernel.launch("launch_me", ctypes.c_int(1))
+    kernel.launch("launch_me", ctypes.c_int(1), device=-1)
+    kernel.launch("launch_me", ctypes.c_int(1), device=-1)
     assert kernel.launches == 2
     assert kernel.last_launch == [
         {"grid": [10, 2, 4], "block": [80, 4, 1], "shared_bytes": 14080,
@@ -113,7 +113,7 @@ def test_launch_error_raises_and_is_not_counted(tmp_path, monkeypatch):
     lib._lib = _FakeLib(code=1)
     kernel = cuda_build.CudaKernel("k", lib)
     with pytest.raises(RuntimeError, match="CUDA error 1 .invalid argument"):
-        kernel.launch("launch_me")
+        kernel.launch("launch_me", device=-1)
     assert kernel.launches == 0 and kernel.last_launch == []
 
 

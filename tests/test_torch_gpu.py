@@ -539,6 +539,44 @@ def test_gather_kernel_matches_plain(cuda, seed, swapped):
     assert not got[~args[2]].any()
 
 
+@pytest.fixture
+def second_card(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    return torch.device("cuda", 1)
+
+
+def test_kernels_launch_on_the_card_of_their_tensors(second_card):
+    """K1 and K2 on cuda:1 while the current card is 0: each launch runs
+    on the card its tensors lie on and equals its plain version (the C
+    entry points launch on the current card, which ``CudaKernel.launch``
+    sets to the tensors' card for the call)."""
+    dev = second_card
+    torch.cuda.set_device(0)
+    y, col_cy, bounds, bias = [torch.from_numpy(a).to(dev)
+                               for a in _columns(0, 320)]
+    before = column_merge.KERNEL.launches
+    out, stats = column_merge.merge_taps_fused(y, col_cy, bounds, bias,
+                                               GRID)
+    assert column_merge.KERNEL.launches == before + 1
+    assert torch.cuda.current_device() == 0
+    want_out, want_stats = _merge_reference(y, col_cy, bounds, bias, GRID)
+    torch.cuda.synchronize(dev)
+    assert out.device == dev and torch.equal(out, want_out)
+    _assert_stats_close(stats, want_stats)
+    feats, rc, ok = _gather_inputs(0)
+    args = ([torch.from_numpy(f).to(dev) for f in feats],
+            torch.from_numpy(rc).to(dev), torch.from_numpy(ok).to(dev))
+    before = gather.KERNEL.launches
+    got = gather.fpn_gather(*args, IMG)
+    assert gather.KERNEL.launches == before + 1
+    assert torch.cuda.current_device() == 0
+    want = gather.fpn_gather_plain(*args, IMG)
+    torch.cuda.synchronize(dev)
+    assert got.device == dev
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("swapped", [False, True])
 def test_gather_backward_on_card_matches_plain(cuda, dtype, swapped):
