@@ -11,6 +11,7 @@ import torch
 
 from mvxnet_makise_tpu_torch.geometry.boxes import decode_boxes
 from mvxnet_makise_tpu_torch.ops.nms import rotated_nms_bev_batch
+from mvxnet_makise_tpu_torch.utils.profiling import span, sync_point
 
 
 class Detections(NamedTuple):
@@ -45,11 +46,12 @@ def decode_batch(score: torch.Tensor,
     flat_scores = score.reshape(B, -1)
     deltas = reg.reshape(B, H, W, A, 7)
     boxes = decode_boxes(deltas, anchors).reshape(B, -1, 7)
-    idx, scores, valid = rotated_nms_bev_batch(
-        boxes, flat_scores,
-        iou_threshold=nms_iou_threshold,
-        score_threshold=score_threshold,
-        pre_max_size=pre_max_size, post_max_size=post_max_size)
+    with span("mvx.serve.nms"):
+        idx, scores, valid = rotated_nms_bev_batch(
+            boxes, flat_scores,
+            iou_threshold=nms_iou_threshold,
+            score_threshold=score_threshold,
+            pre_max_size=pre_max_size, post_max_size=post_max_size)
     # anchor slot ordering is [cls0_yaw0, cls0_yaw90, cls1_yaw0, ...]
     # (ops/assign.create_anchors), so class = slot // 2
     classes = torch.div(idx % A, 2, rounding_mode="floor").to(torch.int32)
@@ -77,11 +79,16 @@ def decode_predictions(score: torch.Tensor,
     return Detections(*(f[0] for f in det))
 
 
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    with sync_point():
+        return t.cpu().numpy()
+
+
 def unpack(det: Detections) -> List[FrameDetections]:
     """The valid detections of each frame of a batch (:func:`decode_batch`'s
     output), on the host: each field is copied to the host once, then
     split into frames there."""
-    boxes, scores, valid, classes = (f.cpu().numpy() for f in det)
+    boxes, scores, valid, classes = (_to_host(f) for f in det)
     return [FrameDetections(boxes=boxes[b][v], scores=scores[b][v],
                             classes=classes[b][v])
             for b, v in enumerate(valid)]

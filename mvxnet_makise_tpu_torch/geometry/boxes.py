@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from mvxnet_makise_tpu_torch.utils.profiling import sync_point
+
 # Base BEV square in (l, w) units, counter-clockwise winding.
 _BASE_CORNERS = ((0.5, 0.5), (-0.5, 0.5), (-0.5, -0.5), (0.5, -0.5))
 
@@ -20,8 +22,9 @@ _BASE_CORNERS = ((0.5, 0.5), (-0.5, 0.5), (-0.5, -0.5), (0.5, -0.5))
 def boxes3d_to_bev_corners(boxes: torch.Tensor) -> torch.Tensor:
     """(..., 7) xyzlwhr -> (..., 4, 2) BEV corner quads (CCW)."""
     c, s = torch.cos(boxes[..., 6]), torch.sin(boxes[..., 6])
-    base = torch.tensor(_BASE_CORNERS, dtype=boxes.dtype,
-                        device=boxes.device)
+    with sync_point():   # a copy from pageable host memory
+        base = torch.tensor(_BASE_CORNERS, dtype=boxes.dtype,
+                            device=boxes.device)
     px = base[:, 0] * boxes[..., 3:4]                              # (..., 4)
     py = base[:, 1] * boxes[..., 4:5]
     rx = px * c[..., None] + py * s[..., None]

@@ -29,6 +29,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from mvxnet_makise_tpu_torch.utils.profiling import sync_point
+
 
 def set_norm_scope(model: nn.Module, scope: str,
                    group: Optional[Any] = None) -> nn.Module:
@@ -79,8 +81,9 @@ def standardize(x: torch.Tensor, eps: float = 1e-6,
     if batch and group is not None:
         # summed in at least float32 and rounded once, as ``mean`` does
         acc = torch.promote_types(x.dtype, torch.float32)
-        n = torch.tensor(float(np.prod([x.shape[d] for d in dims])),
-                         dtype=acc, device=x.device)
+        with sync_point():   # a copy from pageable host memory
+            n = torch.tensor(float(np.prod([x.shape[d] for d in dims])),
+                             dtype=acc, device=x.device)
         s, n = pooled([x.sum(dim=dims, keepdim=True, dtype=acc), n], group)
         mean = (s / n).to(x.dtype)
         (ss,) = pooled([torch.square(x - mean).sum(dim=dims, keepdim=True,

@@ -9,7 +9,9 @@ feature (``z0``).  ``MVXNetVoxelFusion``: the MVX-Net paper's VoxelFusion,
 one image feature per voxel, gathered at the mean image projection of
 its points and fused after the LiDAR voxel encoding.  Both take the same
 seven point-major inputs.  :func:`build_model` also builds the LiDAR-only
-detector, ``VoxelNetBranchPM`` on the 7 LiDAR channels alone.
+detector, ``VoxelNetBranchPM`` on the 7 LiDAR channels alone.  Spans
+(``utils/profiling``): ``mvx.model.image`` (ResNet50-FPN, K2, the fusion
+MLP), ``mvx.model.vfe``, ``mvx.model.cml``, ``mvx.model.rpn``.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from mvxnet_makise_tpu_torch.models.voxelnet_pm import (
     voxel_features,
 )
 from mvxnet_makise_tpu_torch.ops.gather import fpn_gather
+from mvxnet_makise_tpu_torch.utils.profiling import span
 
 
 class MVXNetPM(nn.Module):
@@ -81,17 +84,20 @@ class MVXNetPM(nn.Module):
         # gives JAX's batch total (blocks._moments)
         n_virtual = (vmask.sum(dim=1) * self.samples_per_voxel
                      - seen.sum(dim=1))
-        imfeat, z16 = self.head(images, sorted_points[..., 4:6], seen,
-                                n_virtual)
-        if self.origin_is_empty:
-            imfeat = torch.where(seen[..., None], imfeat,
-                                 z16[:, None, :].expand_as(imfeat))
-        pf7 = point_lidar_features(sorted_points, sorted_seg, sorted_kept,
-                                   counts, self.samples_per_voxel)
-        x = torch.cat([pf7.to(imfeat.dtype), imfeat], dim=-1)
-        z0 = torch.cat([imfeat.new_zeros((B, V, 7)),
-                        z16[:, None, :].expand(B, V, z16.shape[-1])],
-                       dim=-1)
+        with span("mvx.model.image"):
+            imfeat, z16 = self.head(images, sorted_points[..., 4:6], seen,
+                                    n_virtual)
+            if self.origin_is_empty:
+                imfeat = torch.where(seen[..., None], imfeat,
+                                     z16[:, None, :].expand_as(imfeat))
+        with span("mvx.model.vfe"):
+            pf7 = point_lidar_features(sorted_points, sorted_seg,
+                                       sorted_kept, counts,
+                                       self.samples_per_voxel)
+            x = torch.cat([pf7.to(imfeat.dtype), imfeat], dim=-1)
+            z0 = torch.cat([imfeat.new_zeros((B, V, 7)),
+                            z16[:, None, :].expand(B, V, z16.shape[-1])],
+                           dim=-1)
         return x, z0
 
     def forward(self, sorted_points: torch.Tensor,
@@ -169,25 +175,32 @@ class MVXNetVoxelFusion(nn.Module):
         """The inputs of :meth:`MVXNetPM.forward`; the same maps out.  The
         compute dtype is the images' (bfloat16 under ``use_bf16``)."""
         cdt = images.dtype
-        pf7 = point_lidar_features(sorted_points, sorted_seg, sorted_kept,
-                                   counts, self.samples_per_voxel)
-        x = voxel_features(self.svfe, self.fcn, self.samples_per_voxel,
-                           pf7.to(cdt), sorted_kept, sorted_seg, counts,
-                           vmask)
-        rc = self.voxel_points(sorted_points, sorted_kept, sorted_seg,
-                               counts, cdt)
-        pyramid = fpn_pyramid(self.extractor, images, self.image_min_side)
-        gathered = fpn_gather(
-            pyramid, rc.to(torch.promote_types(cdt, torch.float32))
-            .contiguous(), vmask.contiguous(),
-            gather_image_size(self.image_size, self.image_min_side),
-            eps=self.eps)                                   # (B, V, 768)
-        imf = self.imfuse2(self.imfuse1(gathered, vmask), vmask)
-        fused = self.mix(torch.cat([x, imf], dim=-1), vmask)
-        fused = torch.where(vmask[..., None], fused, torch.zeros_like(fused))
-        y = self.cml(fused, coords, vmask)          # (B, C, D, nx, ny)
+        with span("mvx.model.vfe"):
+            pf7 = point_lidar_features(sorted_points, sorted_seg,
+                                       sorted_kept, counts,
+                                       self.samples_per_voxel)
+            x = voxel_features(self.svfe, self.fcn, self.samples_per_voxel,
+                               pf7.to(cdt), sorted_kept, sorted_seg, counts,
+                               vmask)
+        with span("mvx.model.image"):
+            rc = self.voxel_points(sorted_points, sorted_kept, sorted_seg,
+                                   counts, cdt)
+            pyramid = fpn_pyramid(self.extractor, images,
+                                  self.image_min_side)
+            gathered = fpn_gather(
+                pyramid, rc.to(torch.promote_types(cdt, torch.float32))
+                .contiguous(), vmask.contiguous(),
+                gather_image_size(self.image_size, self.image_min_side),
+                eps=self.eps)                               # (B, V, 768)
+            imf = self.imfuse2(self.imfuse1(gathered, vmask), vmask)
+            fused = self.mix(torch.cat([x, imf], dim=-1), vmask)
+            fused = torch.where(vmask[..., None], fused,
+                                torch.zeros_like(fused))
+        with span("mvx.model.cml"):
+            y = self.cml(fused, coords, vmask)      # (B, C, D, nx, ny)
         B, C, D, H, W = y.shape
-        return self.rpn(y.reshape(B, C * D, H, W))
+        with span("mvx.model.rpn"):
+            return self.rpn(y.reshape(B, C * D, H, W))
 
 
 FUSION_MODES = ("pm", "slot", "point", "voxel")

@@ -11,7 +11,9 @@ all holding the same row — enter the statistics and the max in closed
 form with multiplicity ``T - count_v``
 (``blocks.DenseReluNormVirtualWeighted``).  ``remat`` recomputes the CML
 in the backward pass instead of keeping its activations (``nn.remat`` in
-JAX, ``torch.utils.checkpoint`` here).
+JAX, ``torch.utils.checkpoint`` here).  The forward's spans
+(``utils/profiling``): ``mvx.model.vfe``, ``mvx.model.cml``,
+``mvx.model.rpn``.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from mvxnet_makise_tpu_torch.models.voxelnet import (
     RPN,
     make_cml,
 )
+from mvxnet_makise_tpu_torch.utils.profiling import span
 
 _NEG = -1e30
 
@@ -208,9 +211,13 @@ class VoxelNetBranchPM(nn.Module):
         """points: (B, P, C_in) voxel-sorted per-point features; kept/seg:
         (B, P); counts: (B, V); coords: (B, V, 3); vmask: (B, V); z0:
         (B, V, C_in) empty-slot input rows (None = zeros)."""
-        vfeat = self.voxel_features(points, kept, seg, counts, vmask, z0)
-        y = self.run_cml(vfeat, coords, vmask)      # (B, C, D, nx, ny)
+        with span("mvx.model.vfe"):
+            vfeat = self.voxel_features(points, kept, seg, counts, vmask,
+                                        z0)
+        with span("mvx.model.cml"):
+            y = self.run_cml(vfeat, coords, vmask)  # (B, C, D, nx, ny)
         B, C, D, H, W = y.shape
         # (C, D) flattening order into channels, as the reference
         # reshapes NCDHW -> N, C*D, H, W
-        return self.rpn(y.reshape(B, C * D, H, W))
+        with span("mvx.model.rpn"):
+            return self.rpn(y.reshape(B, C * D, H, W))

@@ -20,6 +20,7 @@ from mvxnet_makise_tpu_torch.geometry.boxes import (
     boxes3d_to_bev_corners,
     quad_intersection_area,
 )
+from mvxnet_makise_tpu_torch.utils.profiling import sync_point
 
 
 class AnchorTargets(NamedTuple):
@@ -239,8 +240,11 @@ def _assign_one_class(gt_boxes: torch.Tensor,
 
     ax = x0 + ls / 2 + ci.to(dtype) * ls                    # (G, K, K)
     ay = y0 + ws / 2 + cj.to(dtype) * ws
-    yaw = torch.tensor(yaws, dtype=dtype, device=dev)
-    size = torch.tensor(tuple(box_size), dtype=dtype, device=dev)
+    # copies from pageable host memory: each waits for the card
+    with sync_point():
+        yaw = torch.tensor(yaws, dtype=dtype, device=dev)
+    with sync_point():
+        size = torch.tensor(tuple(box_size), dtype=dtype, device=dev)
     shape = (G, K, K, A)
     anchor_boxes = torch.cat([
         ax[..., None, None].expand(*shape, 1),

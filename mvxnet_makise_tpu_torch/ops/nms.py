@@ -14,6 +14,7 @@ from typing import Tuple
 import torch
 
 from mvxnet_makise_tpu_torch.geometry.boxes import rotated_iou_bev
+from mvxnet_makise_tpu_torch.utils.profiling import sync_point
 
 # sweeps between convergence checks: sweeps past the fixpoint change
 # nothing, so checking less often only saves host synchronisations
@@ -59,7 +60,9 @@ def rotated_nms_bev_batch(boxes: torch.Tensor,
         for _ in range(_SWEEPS_PER_CHECK):
             prev = keep
             keep = alive & ~(sup & keep[..., :, None]).any(dim=-2)
-        if bool(torch.equal(keep, prev)):
+        with sync_point():
+            settled = torch.equal(keep, prev)
+        if settled:
             break
 
     # compact kept indices to the front of each row (stable), cap at

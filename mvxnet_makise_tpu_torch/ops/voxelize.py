@@ -16,6 +16,8 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
+from mvxnet_makise_tpu_torch.utils.profiling import sync_point
+
 
 class VoxelGrid(NamedTuple):
     """Static-capacity voxelized frames (leading batch axis B)."""
@@ -90,10 +92,14 @@ def voxelize(points: torch.Tensor,
     else:
         was_valid = pos[None, :] < num_valid.to(dev)[:, None]
 
-    lo = torch.tensor(velo_range[:3], dtype=points.dtype, device=dev)
-    vs = torch.tensor(voxel_size, dtype=points.dtype, device=dev)
+    # constants copied from pageable host memory: each waits for the card
+    with sync_point():
+        lo = torch.tensor(velo_range[:3], dtype=points.dtype, device=dev)
+    with sync_point():
+        vs = torch.tensor(voxel_size, dtype=points.dtype, device=dev)
     ijk = torch.floor((points[..., :3] - lo) / vs).to(torch.int32)
-    hi = torch.tensor([nx, ny, nz], dtype=torch.int32, device=dev)
+    with sync_point():
+        hi = torch.tensor([nx, ny, nz], dtype=torch.int32, device=dev)
     in_bounds = ((ijk >= 0) & (ijk < hi)).all(dim=-1)
     valid = was_valid & in_bounds
 

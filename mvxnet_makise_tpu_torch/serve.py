@@ -17,6 +17,16 @@ cast once when the detector is made and again by :meth:`Detector.set_params`
 (JAX's serving casts them once per weight set too); the points stay
 float32.
 
+Each batch that :meth:`Detector.detect_batch`,
+:meth:`~Detector.detect_frames` or :meth:`~Detector.detect_stream`
+serves takes the next number of the detector's sequence and is the span
+``mvx.serve.batch`` with that id (``utils/profiling``); inside it
+``mvx.serve.upload``, ``mvx.model.*``, ``mvx.serve.decode`` (with
+``mvx.serve.nms``), ``mvx.serve.readback`` and, under a mesh,
+``mvx.serve.gather``.  The host feed is ``mvx.serve.assemble`` with the
+batch's id, and :meth:`Detector.detect_stream`'s wait for it
+``mvx.serve.feed_wait``.
+
 With ``mesh`` (``parallel.make_mesh``, one process per card) the
 detector serves data-parallel as JAX's does: every rank passes the same
 frames, each data rank runs its contiguous slice of the batch, and every
@@ -67,6 +77,7 @@ from mvxnet_makise_tpu_torch.ops.assign import create_anchors
 from mvxnet_makise_tpu_torch.train import checkpoint as ckpt
 from mvxnet_makise_tpu_torch.train.state import cast_for_compute
 from mvxnet_makise_tpu_torch.train.step import forward, frames_to_batch
+from mvxnet_makise_tpu_torch.utils.profiling import span, sync_point
 
 
 class Detector:
@@ -116,6 +127,8 @@ class Detector:
         self.pre_max_size = pre_max_size
         self.post_max_size = post_max_size
         self._assemble_pool: Optional[ThreadPoolExecutor] = None
+        # the number of each batch served, in the spans of its work
+        self._batch_ids = itertools.count()
 
     @classmethod
     def create(cls, cfg: Config,
@@ -172,12 +185,13 @@ class Detector:
         pipeline returns them).  Under a mesh, those of this data rank's
         slice of the batch (:meth:`detect_batch` gathers the whole)."""
         score, reg = self.maps(*self._local(points, num_points, images))
-        return decode_batch(
-            score.float(), reg.float(), self.anchors,
-            score_threshold=self.score_threshold,
-            nms_iou_threshold=self.nms_iou_threshold,
-            pre_max_size=self.pre_max_size,
-            post_max_size=self.post_max_size)
+        with span("mvx.serve.decode"):
+            return decode_batch(
+                score.float(), reg.float(), self.anchors,
+                score_threshold=self.score_threshold,
+                nms_iou_threshold=self.nms_iou_threshold,
+                pre_max_size=self.pre_max_size,
+                post_max_size=self.post_max_size)
 
     def _local(self, points, num_points, images):
         """This data rank's rows of an assembled batch (all of it without
@@ -199,7 +213,8 @@ class Detector:
     def _collect(self, det: Detections) -> List[FrameDetections]:
         """Host detections of one batch run by :meth:`run_batch`: under a
         mesh, every data rank's slice gathered in frame order."""
-        out = unpack(det)
+        with span("mvx.serve.readback"):
+            out = unpack(det)
         if self.mesh is None:
             return out
         import torch.distributed as dist
@@ -207,8 +222,9 @@ class Detector:
         from mvxnet_makise_tpu_torch.parallel.mesh import axis_size
 
         parts = [None] * axis_size(self.mesh, "data")
-        dist.all_gather_object(parts, out,
-                               group=self.mesh.get_group("data"))
+        with span("mvx.serve.gather"):
+            dist.all_gather_object(parts, out,
+                                   group=self.mesh.get_group("data"))
         return [d for part in parts for d in part]
 
     @torch.no_grad()
@@ -219,9 +235,14 @@ class Detector:
         (float32 under ``use_bf16``): bfloat16 coordinates would move
         points between voxels."""
         dev = self.device
-        pts = torch.as_tensor(points).to(dev, self.dtype)
-        nums = torch.as_tensor(num_points).to(dev)
-        imgs = torch.as_tensor(images).to(dev, self.dtype)
+        with span("mvx.serve.upload"):
+            # copies from pageable host memory: each waits for the card
+            with sync_point():
+                pts = torch.as_tensor(points).to(dev, self.dtype)
+            with sync_point():
+                nums = torch.as_tensor(num_points).to(dev)
+            with sync_point():
+                imgs = torch.as_tensor(images).to(dev, self.dtype)
         batch = frames_to_batch(pts, nums, imgs, self.cfg)
         return forward(self.model, batch, self.cfg, self.with_images,
                        self.tensors)
@@ -260,13 +281,26 @@ class Detector:
         """Detections for one batch already assembled by
         :meth:`assemble` (under a mesh, the whole batch's on every
         rank)."""
-        return self._collect(self.run_batch(points, num_points, images))
+        return self._detect((points, num_points, images),
+                            next(self._batch_ids))
+
+    def _detect(self, batch, batch_id: int) -> List[FrameDetections]:
+        """:meth:`detect_batch` of batch number ``batch_id``."""
+        with span("mvx.serve.batch", batch_id):
+            return self._collect(self.run_batch(*batch))
+
+    def _assemble(self, frames, batch_id: int):
+        """:meth:`assemble` of batch number ``batch_id``."""
+        with span("mvx.serve.assemble", batch_id):
+            return self.assemble(frames)
 
     def detect_frames(self, frames) -> List[FrameDetections]:
         """frames: list of (points (N, >=4), calib, image or None).
         Points may be raw scans — the native crop+project handles
         range/frustum filtering."""
-        return self.detect_batch(*self.assemble(list(frames)))
+        batch_id = next(self._batch_ids)
+        return self._detect(self._assemble(list(frames), batch_id),
+                            batch_id)
 
     def detect_stream(self, frames: Iterable, batch_size: int = 8):
         """Steady-state serving loop: yields one :class:`FrameDetections`
@@ -280,19 +314,22 @@ class Detector:
         left."""
         it = iter(frames)
 
-        def next_batch():
+        def next_batch(batch_id):
             buf = list(itertools.islice(it, batch_size))
-            return self.assemble(buf) if buf else None
+            return self._assemble(buf, batch_id) if buf else None
 
         with ThreadPoolExecutor(max_workers=1,
                                 thread_name_prefix="feed") as feed:
-            pending = feed.submit(next_batch)
+            batch_id = next(self._batch_ids)
+            pending = feed.submit(next_batch, batch_id)
             while True:
-                batch = pending.result()
+                with span("mvx.serve.feed_wait", batch_id):
+                    batch = pending.result()
                 if batch is None:
                     return
-                pending = feed.submit(next_batch)
-                yield from self.detect_batch(*batch)
+                this_id, batch_id = batch_id, next(self._batch_ids)
+                pending = feed.submit(next_batch, batch_id)
+                yield from self._detect(batch, this_id)
 
     def stream_batches(self, batches: Iterable, batch_size: int):
         """Throughput loop over pre-assembled ``(points, num_points,

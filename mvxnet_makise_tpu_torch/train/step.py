@@ -11,6 +11,12 @@ kernels on the card) and the AdamW update.  ``with_images=False`` is the
 LiDAR-only detector (``models/mvxnet.build_model``); under ``use_bf16``
 the forward runs on bfloat16 copies of the parameters
 (``train/state.cast_for_compute``).
+
+Spans (``utils/profiling``): ``mvx.model.voxelize`` in
+:func:`frames_to_batch`; each step is ``mvx.train.step`` (id: the state's
+step count) around ``mvx.train.assign``, ``mvx.train.forward``,
+``mvx.train.loss``, ``mvx.train.backward``, ``mvx.train.finite_check``,
+``mvx.train.allreduce`` (under a mesh) and ``mvx.train.optimizer``.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from mvxnet_makise_tpu_torch.ops.assign import (
 from mvxnet_makise_tpu_torch.ops.voxelize import voxelize
 from mvxnet_makise_tpu_torch.train.loss import voxel_loss
 from mvxnet_makise_tpu_torch.train.state import TrainState, cast_for_compute
+from mvxnet_makise_tpu_torch.utils.profiling import span, sync_point
 
 
 class Batch(NamedTuple):
@@ -56,10 +63,11 @@ def frames_to_batch(points: torch.Tensor, num_points: torch.Tensor,
     """Voxelize padded frames on their device.  points: (B, P, 6);
     num_points: (B,); images: (B, H, W, 3); ``perm``: (B, P) permutation
     of each cloud for the training shuffle (None: no shuffle)."""
-    g = voxelize(points, num_points, velo_range=cfg.velo_range,
-                 voxel_size=cfg.voxel_size, grid_shape=cfg.voxel_shape,
-                 max_voxels=cfg.max_voxels,
-                 samples_per_voxel=cfg.samples_per_voxel, perm=perm)
+    with span("mvx.model.voxelize"):
+        g = voxelize(points, num_points, velo_range=cfg.velo_range,
+                     voxel_size=cfg.voxel_size, grid_shape=cfg.voxel_shape,
+                     max_voxels=cfg.max_voxels,
+                     samples_per_voxel=cfg.samples_per_voxel, perm=perm)
     return Batch(coords=g.coords, vmask=g.mask, images=images,
                  points=points, sorted_points=g.sorted_points,
                  sorted_kept=g.sorted_kept, sorted_seg=g.sorted_seg,
@@ -87,9 +95,10 @@ def lidar_inputs(batch: Batch, samples_per_voxel: int) -> tuple:
     """Arguments of the LiDAR-only ``VoxelNetBranchPM``'s forward, in
     order: its 7-channel point features are computed here from the
     points, in their dtype, as JAX's ``_model_inputs`` does."""
-    pf7 = point_lidar_features(batch.sorted_points, batch.sorted_seg,
-                               batch.sorted_kept, batch.counts,
-                               samples_per_voxel)
+    with span("mvx.model.vfe"):
+        pf7 = point_lidar_features(batch.sorted_points, batch.sorted_seg,
+                                   batch.sorted_kept, batch.counts,
+                                   samples_per_voxel)
     return (pf7, batch.sorted_kept, batch.sorted_seg, batch.counts,
             batch.coords, batch.vmask)
 
@@ -136,23 +145,26 @@ def compute_loss(model: nn.Module, batch: Batch, targets: AnchorTargets,
     """Mean over frames of :func:`voxel_loss`, and the mean of each
     metric.  The maps enter the loss in at least float32, as JAX casts
     them to float32; a float64 model keeps float64."""
-    score, reg = forward(model, batch, cfg, with_images)
-    dtype = torch.promote_types(score.dtype, torch.float32)
-    score, reg = score.to(dtype), reg.to(dtype)
-    anchors = anchors.to(dtype)
-    losses, metrics = [], []
-    for b in range(score.shape[0]):
-        loss, m = voxel_loss(
-            score[b], reg[b], AnchorTargets(*(f[b] for f in targets)),
-            batch.gt_boxes[b].to(dtype), anchors,
-            pos_weight=cfg.pos_loss_weight, neg_weight=cfg.neg_loss_weight,
-            eps=cfg.eps, mode=cfg.cls_loss_mode,
-            focal_gamma=cfg.focal_gamma, focal_alpha=cfg.focal_alpha)
-        losses.append(loss)
-        metrics.append(m)
-    return (torch.stack(losses).mean(),
-            {k: torch.stack([m[k] for m in metrics]).to(dtype).mean()
-             for k in metrics[0]})
+    with span("mvx.train.forward"):
+        score, reg = forward(model, batch, cfg, with_images)
+    with span("mvx.train.loss"):
+        dtype = torch.promote_types(score.dtype, torch.float32)
+        score, reg = score.to(dtype), reg.to(dtype)
+        anchors = anchors.to(dtype)
+        losses, metrics = [], []
+        for b in range(score.shape[0]):
+            loss, m = voxel_loss(
+                score[b], reg[b], AnchorTargets(*(f[b] for f in targets)),
+                batch.gt_boxes[b].to(dtype), anchors,
+                pos_weight=cfg.pos_loss_weight,
+                neg_weight=cfg.neg_loss_weight, eps=cfg.eps,
+                mode=cfg.cls_loss_mode, focal_gamma=cfg.focal_gamma,
+                focal_alpha=cfg.focal_alpha)
+            losses.append(loss)
+            metrics.append(m)
+        return (torch.stack(losses).mean(),
+                {k: torch.stack([m[k] for m in metrics]).to(dtype).mean()
+                 for k in metrics[0]})
 
 
 # elements per all-reduce of the flattened gradients (64 MiB of float32)
@@ -222,29 +234,36 @@ def make_train_step(cfg: Config, anchors: torch.Tensor,
 
     def train_step(state: TrainState, batch: Batch
                    ) -> Dict[str, torch.Tensor]:
-        targets = _assign_batch(batch, cfg)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = compute_loss(state.model, batch, targets, anchors,
-                                     cfg, with_images)
-        loss.backward()
-        loss = loss.detach()
-        if group is not None:
-            names = list(metrics)
-            flat = torch.stack([loss, *(metrics[k].detach().to(loss.dtype)
-                                        for k in names)])
-            dist.all_reduce(flat, group=group)
-            flat /= n_data
-            loss = flat[0]
-            metrics = {k: v.to(metrics[k].dtype)
-                       for k, v in zip(names, flat[1:])}
-        finite = bool(torch.isfinite(loss))
-        if finite:
+        with span("mvx.train.step", state.step):
+            with span("mvx.train.assign"):
+                targets = _assign_batch(batch, cfg)
+            state.optimizer.zero_grad(set_to_none=True)
+            loss, metrics = compute_loss(state.model, batch, targets,
+                                         anchors, cfg, with_images)
+            with span("mvx.train.backward"):
+                loss.backward()
+            loss = loss.detach()
             if group is not None:
-                _data_mean([p.grad for p in state.model.parameters()
-                            if p.grad is not None], group, n_data)
-            state.apply_gradients()
-        return dict(metrics, total_loss=loss,
-                    skipped_nonfinite=torch.tensor(int(not finite)))
+                with span("mvx.train.allreduce"):
+                    names = list(metrics)
+                    flat = torch.stack([loss, *(metrics[k].detach().to(
+                        loss.dtype) for k in names)])
+                    dist.all_reduce(flat, group=group)
+                    flat /= n_data
+                    loss = flat[0]
+                    metrics = {k: v.to(metrics[k].dtype)
+                               for k, v in zip(names, flat[1:])}
+            with span("mvx.train.finite_check"), sync_point():
+                finite = bool(torch.isfinite(loss))
+            if finite:
+                if group is not None:
+                    with span("mvx.train.allreduce"):
+                        _data_mean([p.grad for p in state.model.parameters()
+                                    if p.grad is not None], group, n_data)
+                with span("mvx.train.optimizer"):
+                    state.apply_gradients()
+            return dict(metrics, total_loss=loss,
+                        skipped_nonfinite=torch.tensor(int(not finite)))
 
     return train_step
 

@@ -3,7 +3,9 @@
 The port's copy of ``mvxnet_makise_tpu/utils/metrics.py``: running
 average and maximum of each loss with non-finite values excluded but
 counted (the reference's logging every 50 iterations), and wall-clock
-totals per named phase of the loop.
+totals per named phase of the loop.  Each phase is also the span
+``mvx.loop.<phase>`` (``utils/profiling``), so the loop's phases land in
+the same recorder and profiler trace as the rest of the port.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ import threading
 import time
 from collections import defaultdict
 from typing import Dict
+
+from mvxnet_makise_tpu_torch.utils.profiling import span
 
 
 class LossTracker:
@@ -74,8 +78,10 @@ class PhaseTimer:
     class _Ctx:
         def __init__(self, timer, name):
             self.timer, self.name = timer, name
+            self.span = span("mvx.loop." + name)
 
         def __enter__(self):
+            self.span.__enter__()
             self.t0 = time.perf_counter()
             return self
 
@@ -84,6 +90,7 @@ class PhaseTimer:
             with self.timer._lock:
                 self.timer.totals[self.name] += dt
                 self.timer.counts[self.name] += 1
+            self.span.__exit__(*exc)
             return False
 
     def phase(self, name: str) -> "_Ctx":
