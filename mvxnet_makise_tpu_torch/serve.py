@@ -19,13 +19,11 @@ float32.
 
 Each batch that :meth:`Detector.detect_batch`,
 :meth:`~Detector.detect_frames` or :meth:`~Detector.detect_stream`
-serves takes the next number of the detector's sequence and is the span
-``mvx.serve.batch`` with that id (``utils/profiling``); inside it
+serves is the span ``mvx.serve.batch`` (``utils/profiling``); inside it
 ``mvx.serve.upload``, ``mvx.model.*``, ``mvx.serve.decode`` (with
 ``mvx.serve.nms``), ``mvx.serve.readback`` and, under a mesh,
-``mvx.serve.gather``.  The host feed is ``mvx.serve.assemble`` with the
-batch's id, and :meth:`Detector.detect_stream`'s wait for it
-``mvx.serve.feed_wait``.
+``mvx.serve.gather``.  :meth:`Detector.detect_stream`'s wait for the
+feed thread's batch is ``mvx.serve.feed_wait``.
 
 With ``mesh`` (``parallel.make_mesh``, one process per card) the
 detector serves data-parallel as JAX's does: every rank passes the same
@@ -127,8 +125,6 @@ class Detector:
         self.pre_max_size = pre_max_size
         self.post_max_size = post_max_size
         self._assemble_pool: Optional[ThreadPoolExecutor] = None
-        # the number of each batch served, in the spans of its work
-        self._batch_ids = itertools.count()
 
     @classmethod
     def create(cls, cfg: Config,
@@ -281,26 +277,14 @@ class Detector:
         """Detections for one batch already assembled by
         :meth:`assemble` (under a mesh, the whole batch's on every
         rank)."""
-        return self._detect((points, num_points, images),
-                            next(self._batch_ids))
-
-    def _detect(self, batch, batch_id: int) -> List[FrameDetections]:
-        """:meth:`detect_batch` of batch number ``batch_id``."""
-        with span("mvx.serve.batch", batch_id):
-            return self._collect(self.run_batch(*batch))
-
-    def _assemble(self, frames, batch_id: int):
-        """:meth:`assemble` of batch number ``batch_id``."""
-        with span("mvx.serve.assemble", batch_id):
-            return self.assemble(frames)
+        with span("mvx.serve.batch"):
+            return self._collect(self.run_batch(points, num_points, images))
 
     def detect_frames(self, frames) -> List[FrameDetections]:
         """frames: list of (points (N, >=4), calib, image or None).
         Points may be raw scans — the native crop+project handles
         range/frustum filtering."""
-        batch_id = next(self._batch_ids)
-        return self._detect(self._assemble(list(frames), batch_id),
-                            batch_id)
+        return self.detect_batch(*self.assemble(list(frames)))
 
     def detect_stream(self, frames: Iterable, batch_size: int = 8):
         """Steady-state serving loop: yields one :class:`FrameDetections`
@@ -314,22 +298,20 @@ class Detector:
         left."""
         it = iter(frames)
 
-        def next_batch(batch_id):
+        def next_batch():
             buf = list(itertools.islice(it, batch_size))
-            return self._assemble(buf, batch_id) if buf else None
+            return self.assemble(buf) if buf else None
 
         with ThreadPoolExecutor(max_workers=1,
                                 thread_name_prefix="feed") as feed:
-            batch_id = next(self._batch_ids)
-            pending = feed.submit(next_batch, batch_id)
+            pending = feed.submit(next_batch)
             while True:
-                with span("mvx.serve.feed_wait", batch_id):
+                with span("mvx.serve.feed_wait"):
                     batch = pending.result()
                 if batch is None:
                     return
-                this_id, batch_id = batch_id, next(self._batch_ids)
-                pending = feed.submit(next_batch, batch_id)
-                yield from self._detect(batch, this_id)
+                pending = feed.submit(next_batch)
+                yield from self.detect_batch(*batch)
 
     def stream_batches(self, batches: Iterable, batch_size: int):
         """Throughput loop over pre-assembled ``(points, num_points,

@@ -13,9 +13,9 @@ the forward runs on bfloat16 copies of the parameters
 (``train/state.cast_for_compute``).
 
 Spans (``utils/profiling``): ``mvx.model.voxelize`` in
-:func:`frames_to_batch`; each step is ``mvx.train.step`` (id: the state's
-step count) around ``mvx.train.assign``, ``mvx.train.forward``,
-``mvx.train.loss``, ``mvx.train.backward``, ``mvx.train.finite_check``,
+:func:`frames_to_batch`; each step is ``mvx.train.step`` around
+``mvx.train.assign``, ``mvx.train.forward``, ``mvx.train.loss``,
+``mvx.train.backward``, ``mvx.train.finite_check``,
 ``mvx.train.allreduce`` (under a mesh) and ``mvx.train.optimizer``.
 """
 
@@ -234,7 +234,7 @@ def make_train_step(cfg: Config, anchors: torch.Tensor,
 
     def train_step(state: TrainState, batch: Batch
                    ) -> Dict[str, torch.Tensor]:
-        with span("mvx.train.step", state.step):
+        with span("mvx.train.step"):
             with span("mvx.train.assign"):
                 targets = _assign_batch(batch, cfg)
             state.optimizer.zero_grad(set_to_none=True)

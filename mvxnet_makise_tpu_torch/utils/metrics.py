@@ -5,7 +5,7 @@ average and maximum of each loss with non-finite values excluded but
 counted (the reference's logging every 50 iterations), and wall-clock
 totals per named phase of the loop.  Each phase is also the span
 ``mvx.loop.<phase>`` (``utils/profiling``), so the loop's phases land in
-the same recorder and profiler trace as the rest of the port.
+the same profiler trace as the rest of the port.
 """
 
 from __future__ import annotations

@@ -6,38 +6,28 @@ enclosed work, CPU activity always and the card's kernels when CUDA is
 available, and writes a Chrome trace (``chrome://tracing`` or Perfetto)
 into the log directory.
 
-The port's own spans and counters mark its layer boundaries (serving
-loop, host feed, model, training step, parallel; names ``mvx.*``):
-
-- :func:`span` ``(name, id=None)``: a context manager around one piece of
-  work.  While nothing listens it is one shared no-op object.  While a
-  :func:`recording` is open, each span is kept in memory as a
-  :class:`SpanRecord` (name, id, parent, thread, start and end on
-  ``time.time_ns()``'s clock); a span without an id takes its parent's.
-  While ``torch.profiler`` runs, a span on a thread the profiler traces
-  also opens ``record_function(name)``, so the trace, its idle gaps and
-  the kernels launched inside carry the name.
-- :func:`count` ``(name, n=1)``: a counter, kept only while recording.
-- :func:`sync_point`: a span and a count under :data:`SYNC` around one
-  device-to-host synchronisation.
-
-Spans never synchronise the device: device time reaches a span only
-through the profiler, by the launches made inside it.  There is no
-switch besides :func:`recording` and the profiler itself.
+The port's spans mark its layer boundaries (serving loop, model,
+training step, parallel; names ``mvx.*``).  :func:`span` ``(name)`` is a
+profiler range, ``record_function(name)``, on the threads the profiler
+traces, so the trace, its idle gaps and the kernels launched inside
+carry the name; anywhere else, and always while no profiler runs, it is
+one shared no-op object.  :func:`sync_point` is the span :data:`SYNC`
+around one device-to-host synchronisation.  Spans never synchronise the
+device: device time reaches a span only through the profiler, by the
+launches made inside it.  The profiler is the only switch.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import threading
 import time
-from typing import Dict, Iterator, List, Optional
+from typing import Iterator
 
 import torch
 from torch.autograd import profiler as _torch_profiler
 
-# counter and span name of every device-to-host synchronisation
+# span name of every device-to-host synchronisation
 SYNC = "mvx.sync"
 
 
@@ -66,45 +56,6 @@ def trace_context(logdir: str = "mvxnet_trace", enabled: bool = True
             logdir, f"trace-{os.getpid()}-{time.time_ns()}.json"))
 
 
-class SpanRecord:
-    """One recorded span: ``parent`` is the index in
-    :attr:`Recording.spans` of the innermost span open on the same thread
-    when it opened (None at the top); ``t1_ns`` is None while it is
-    open."""
-
-    __slots__ = ("name", "id", "parent", "thread", "t0_ns", "t1_ns")
-
-    def __init__(self, name, id, parent, thread, t0_ns):
-        self.name, self.id, self.parent = name, id, parent
-        self.thread, self.t0_ns, self.t1_ns = thread, t0_ns, None
-
-
-class Recording:
-    """The spans (in the order they opened) and counts of one
-    :func:`recording`."""
-
-    def __init__(self):
-        self.spans: List[SpanRecord] = []
-        self.counts: Dict[str, int] = {}
-        self._lock = threading.Lock()
-
-    def named(self, name: str) -> List[SpanRecord]:
-        return [s for s in self.spans if s.name == name]
-
-    def _open(self, name, id, parent, thread, t0_ns) -> int:
-        with self._lock:
-            self.spans.append(SpanRecord(name, id, parent, thread, t0_ns))
-            return len(self.spans) - 1
-
-    def _add(self, name: str, n: int) -> None:
-        with self._lock:
-            self.counts[name] = self.counts.get(name, 0) + n
-
-
-# the open recording; None while nothing records
-_recording: Optional[Recording] = None
-# per thread: (recording, index) of each open recorded span, innermost last
-_open = threading.local()
 # whether the profiler traces the calling thread
 _enabled_here = torch._C._autograd._profiler_enabled
 
@@ -122,88 +73,18 @@ class _NoSpan:
 _NO_SPAN = _NoSpan()
 
 
-class _Span:
-    __slots__ = ("name", "id", "_rf", "_index", "_rec")
-
-    def __init__(self, name: str, id):
-        self.name, self.id = name, id
-
-    def __enter__(self):
-        rec = self._rec = _recording
-        self._index = None
-        if rec is not None:
-            stack = _stack()
-            parent = stack[-1][1] if stack and stack[-1][0] is rec else None
-            id = self.id
-            if id is None and parent is not None:
-                id = rec.spans[parent].id
-            self._index = rec._open(self.name, id, parent,
-                                    threading.get_ident(), time.time_ns())
-            stack.append((rec, self._index))
-        self._rf = None
-        if _enabled_here():
-            self._rf = _torch_profiler.record_function(self.name)
-            self._rf.__enter__()
-        return self
-
-    def __exit__(self, *exc):
-        if self._rf is not None:
-            self._rf.__exit__(*exc)
-        if self._index is not None:
-            self._rec.spans[self._index].t1_ns = time.time_ns()
-            _stack().pop()
-        return False
-
-
-def _stack() -> list:
-    stack = getattr(_open, "stack", None)
-    if stack is None:
-        stack = _open.stack = []
-    return stack
-
-
-def span(name: str, id=None):
+def span(name: str):
     """A context manager around one piece of work named ``name``
-    (``mvx.<layer>.<what>``); ``id``: the serving batch's or training
-    step's number (None: the parent span's)."""
-    # torch.profiler sets the module's flag while it runs, on any thread
-    if _recording is None and not _torch_profiler._is_profiler_enabled:
-        return _NO_SPAN
-    return _Span(name, id)
-
-
-def count(name: str, n: int = 1) -> None:
-    """Add ``n`` to the counter ``name`` of the open recording, if any."""
-    rec = _recording
-    if rec is not None:
-        rec._add(name, n)
+    (``mvx.<layer>.<what>``)."""
+    # torch.profiler sets the module's flag while it runs, on any thread;
+    # a thread it does not trace gets the no-op too
+    if _torch_profiler._is_profiler_enabled and _enabled_here():
+        return _torch_profiler.record_function(name)
+    return _NO_SPAN
 
 
 def sync_point():
-    """A span and a count under :data:`SYNC`, around one operation that
-    makes the host wait for the card (a copy to the host, a value read, a
-    copy from pageable host memory)."""
-    count(SYNC)
+    """The span :data:`SYNC` around one operation that makes the host wait
+    for the card (a copy to the host, a value read, a copy from pageable
+    host memory)."""
     return span(SYNC)
-
-
-@contextlib.contextmanager
-def recording() -> Iterator[Recording]:
-    """Record every span and count of the process, on every thread, until
-    the block exits; yields the :class:`Recording` that holds them."""
-    global _recording
-    if _recording is not None:
-        raise RuntimeError("a recording is already open")
-    rec = _recording = Recording()
-    try:
-        yield rec
-    finally:
-        _recording = None
-
-
-def trace_interval_us(record: SpanRecord, prof) -> tuple:
-    """A recorded span's (start, end) on a finished ``torch.profiler``
-    window's timeline: microseconds from the trace's start, the clock of
-    its events' ``time_range``."""
-    t0 = prof.profiler.kineto_results.trace_start_ns()
-    return ((record.t0_ns - t0) / 1e3, (record.t1_ns - t0) / 1e3)

@@ -71,7 +71,9 @@ def _ops(ops, spans, program=True, syncs=((0.7, 0.9),)):
     for b in range(2):
         if program:
             host.append(("mvx.serve.batch", b, b + 1.0))
-            host.append(("mvx.serve.feed_wait", b - 0.01, b))
+            # the first wait is the pipeline's fill, which is left out
+            host.append(("mvx.serve.feed_wait", b - (0.05 if b == 0
+                                                     else 0.01), b))
             for name, (s, e) in spans.items():
                 host.append((name, b + s, b + e))
         for kind, t, ms in ops:
@@ -98,6 +100,15 @@ def test_serving_readers():
             "decode_ms.serve": 1.75, "feed_wait_ms.serve": 10.0}
     for name, v in want.items():
         assert _read(name, ctx) == pytest.approx(v, rel=1e-9), name
+
+
+def test_feed_wait_leaves_out_the_pipeline_fill():
+    host, device = _ops(SERVE_OPS, SERVE_SPANS)
+    fill = [h for h in host if h[0] == "mvx.serve.feed_wait"][0]
+    assert fill[2] - fill[1] == pytest.approx(0.05)
+    only_fill = [h for h in host
+                 if h[0] != "mvx.serve.feed_wait" or h is fill]
+    assert _read("feed_wait_ms.serve", _window(only_fill, device)) is None
 
 
 def test_training_readers():

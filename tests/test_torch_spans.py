@@ -1,17 +1,15 @@
-"""PyTorch port: the spans and counters of ``utils/profiling`` on the CPU.
+"""PyTorch port: the spans of ``utils/profiling`` on the CPU.
 
-With nothing listening a span is one shared no-op object; a recording
-keeps each span's name, id, parent, thread and clock, on any thread,
-also on a thread pool made before it opened (which ``record_function``
-misses); a span's interval, put on the profiler's timeline, holds the
-range it opens there.  ``Detector.detect_stream`` records, for every
-batch, the serving vocabulary under the batch's id; a training step
-records the training vocabulary in order (the all-reduce under a mesh);
-NMS counts one synchronisation per fixpoint check.  Recording changes no
+With no profiler running a span is one shared no-op object; under
+``torch.profiler`` each span is a range on the calling thread, nested
+as the spans are and holding the work done inside, and a thread the
+profiler does not trace gets the no-op.  ``Detector.detect_stream``
+opens, for every batch, the serving vocabulary; a training step opens
+the training vocabulary in order (the all-reduce under a mesh); NMS
+opens one ``mvx.sync`` span per fixpoint check.  Tracing changes no
 detection, loss or parameter.
 """
 
-import threading
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -48,7 +46,7 @@ KW = dict(velo_range=(0.0, -8.0, -3.0, 12.8, 8.0, 1.0),
           assign_window=6, image_min_side=0, batch_size=2)
 CFG = Config(**KW)
 
-SERVING = ("mvx.serve.assemble", "mvx.serve.feed_wait", "mvx.serve.upload",
+SERVING = ("mvx.serve.feed_wait", "mvx.serve.upload",
            "mvx.model.voxelize", "mvx.model.image", "mvx.model.vfe",
            "mvx.model.cml", "mvx.model.rpn", "mvx.serve.decode",
            "mvx.serve.nms", "mvx.serve.readback")
@@ -80,98 +78,110 @@ def det():
     d.close()
 
 
-def _children(rec, parent):
-    i = rec.spans.index(parent)
-    return [s for s in rec.spans if s.parent == i]
+def _traced(fn):
+    """fn() under ``torch.profiler`` (CPU): its result and the ``mvx.*``
+    ranges of the window, in the order they opened."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    spans = sorted((e for e in prof.events() if e.name.startswith("mvx.")),
+                   key=lambda e: e.time_range.start)
+    return out, spans
+
+
+def _span_parent(event):
+    """The innermost ``mvx.*`` range around ``event`` (None at the top)."""
+    p = event.cpu_parent
+    while p is not None and not p.name.startswith("mvx."):
+        p = p.cpu_parent
+    return p
+
+
+def _children(spans, parent):
+    return [s for s in spans if _span_parent(s) is parent]
+
+
+def _named(spans, name):
+    return [s for s in spans if s.name == name]
+
+
+def _within(inner, outer):
+    return (outer.time_range.start <= inner.time_range.start
+            and inner.time_range.end <= outer.time_range.end)
 
 
 def test_span_off_is_the_shared_no_op():
-    a, b = P.span("mvx.a"), P.span("mvx.b", 3)
-    assert a is b
+    a, b = P.span("mvx.a"), P.span("mvx.b")
+    assert a is b and P.sync_point() is a
     with a:
-        P.count("mvx.c")
         with P.sync_point():
             pass
-    with P.recording() as rec:
-        pass
-    assert rec.spans == [] and rec.counts == {}
     assert P.span("mvx.a") is a
 
 
-def test_nested_spans_carry_parent_thread_and_id():
-    with P.recording() as rec:
-        with P.span("mvx.outer", 7):
+def test_nested_spans_are_nested_profiler_ranges():
+    def work():
+        with P.span("mvx.outer"):
             with P.span("mvx.inner"):
-                P.count("mvx.n", 2)
-            with P.span("mvx.other", 9):
                 pass
-        P.count("mvx.n")
-        with pytest.raises(RuntimeError):
-            with P.recording():
+            with P.span("mvx.other"):
                 pass
-    outer, inner, other = rec.spans
-    assert [s.name for s in rec.spans] == ["mvx.outer", "mvx.inner",
-                                           "mvx.other"]
-    assert outer.parent is None and inner.parent == 0 and other.parent == 0
-    assert (outer.id, inner.id, other.id) == (7, 7, 9)
-    me = threading.get_ident()
-    assert all(s.thread == me for s in rec.spans)
-    assert outer.t0_ns <= inner.t0_ns <= inner.t1_ns <= other.t0_ns \
-        <= other.t1_ns <= outer.t1_ns
-    assert rec.counts == {"mvx.n": 3}
-    # the recording is closed: spans are no-ops again
+
+    _, spans = _traced(work)
+    outer, inner, other = spans
+    assert [s.name for s in spans] == ["mvx.outer", "mvx.inner",
+                                       "mvx.other"]
+    assert _span_parent(outer) is None
+    assert _span_parent(inner) is outer and _span_parent(other) is outer
+    assert len({s.thread for s in spans}) == 1
+    assert _within(inner, outer) and _within(other, outer)
+    assert inner.time_range.end <= other.time_range.start
+    # the profiler has stopped: spans are no-ops again
     assert P.span("mvx.x") is P.span("mvx.y")
-    with P.span("mvx.after"):
-        pass
-    assert len(rec.spans) == 3
 
 
-def test_span_on_a_thread_pool_made_before_is_recorded():
+def test_span_on_an_untraced_thread_is_a_no_op():
+    """The profiler traces the thread that started it; a span on any
+    other thread, such as ``detect_stream``'s feed, is the no-op and
+    leaves no range."""
     pool = ThreadPoolExecutor(max_workers=1)
     pool.submit(lambda: None).result()
 
     def work():
-        with P.span("mvx.pool", 1):
-            with P.span("mvx.pool.inner"):
-                pass
-        return threading.get_ident()
+        with P.span("mvx.pool") as s:
+            torch.ones(8) @ torch.ones(8)
+        return s
 
     try:
-        with P.recording() as rec:
-            with P.span("mvx.main"):
-                tid = pool.submit(work).result()
+        (here, there), spans = _traced(
+            lambda: (P.span("mvx.main"), pool.submit(work).result()))
     finally:
         pool.shutdown()
-    main, outer, inner = rec.spans
-    assert tid != threading.get_ident()
-    assert outer.thread == inner.thread == tid
-    assert main.thread == threading.get_ident()
-    # a parent is looked for on the span's own thread only
-    assert outer.parent is None and inner.parent == 1 and inner.id == 1
+    assert there is P.span("mvx.any") and here is not there
+    assert spans == []
 
 
-def test_span_interval_holds_its_profiler_range():
+def test_span_range_holds_its_work():
+    def work():
+        for _ in range(3):
+            with P.span("mvx.test.range"):
+                torch.ones(64, 64) @ torch.ones(64, 64)
+
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        with P.recording() as rec:
-            for k in range(3):
-                with P.span("mvx.test.range", k):
-                    torch.ones(64, 64) @ torch.ones(64, 64)
-    events = sorted((e for e in prof.events()
-                     if e.name == "mvx.test.range"),
-                    key=lambda e: e.time_range.start)
-    assert len(events) == len(rec.spans) == 3
-    for s, e in zip(rec.spans, events):
-        t0, t1 = P.trace_interval_us(s, prof)
-        assert t0 <= e.time_range.start and e.time_range.end <= t1
-        assert e.time_range.start - t0 < 1e3
-        assert t1 - e.time_range.end < 1e3
+        work()
+    events = prof.events()
+    ranges = [e for e in events if e.name == "mvx.test.range"]
+    mms = [e for e in events if e.name == "aten::mm"]
+    assert len(ranges) == len(mms) == 3
+    for mm in mms:
+        owner = _span_parent(mm)
+        assert owner in ranges and _within(mm, owner)
 
 
 def test_profiler_alone_opens_the_ranges():
-    """Without a recording, a running profiler sees the spans as ranges
-    and nothing is kept."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU]) as prof:
@@ -184,31 +194,28 @@ def test_profiler_alone_opens_the_ranges():
 
 
 def test_detect_stream_records_the_serving_vocabulary(det, frames):
-    with P.recording() as rec:
-        got = list(det.detect_stream(frames, batch_size=2))
+    got, spans = _traced(
+        lambda: list(det.detect_stream(frames, batch_size=2)))
     assert len(got) == len(frames)
-    batches = rec.named("mvx.serve.batch")
-    ids = [s.id for s in batches]
-    assert len(ids) == 3 and len(set(ids)) == 3
-    for b in batches:
-        names = {s.name for s in rec.spans if s.id == b.id}
-        assert set(SERVING) <= names, set(SERVING) - names
-        assemble, = [s for s in rec.spans
-                     if s.name == "mvx.serve.assemble" and s.id == b.id]
-        assert assemble.thread != b.thread
-        wait, = [s for s in rec.spans
-                 if s.name == "mvx.serve.feed_wait" and s.id == b.id]
-        assert wait.thread == b.thread and wait.t1_ns <= b.t0_ns
-        assert {s.name for s in _children(rec, b)} == {
+    assert set(SERVING) <= {s.name for s in spans}
+    batches = _named(spans, "mvx.serve.batch")
+    waits = _named(spans, "mvx.serve.feed_wait")
+    # one wait before each batch, and one more for the stream's end
+    assert len(batches) == 3 and len(waits) == 4
+    for wait, b in zip(waits, batches):
+        assert _span_parent(wait) is None
+        assert wait.time_range.end <= b.time_range.start
+        assert [s.name for s in _children(spans, b)] == [
             "mvx.serve.upload", "mvx.model.voxelize", "mvx.model.image",
-            "mvx.model.vfe", "mvx.model.cml", "mvx.model.rpn",
-            "mvx.serve.decode", "mvx.serve.readback"}
-    for nms in rec.named("mvx.serve.nms"):
-        assert rec.spans[nms.parent].name == "mvx.serve.decode"
-    for rb in rec.named("mvx.serve.readback"):
-        assert [s.name for s in _children(rec, rb)] == [P.SYNC] * 4
-    assert rec.counts[P.SYNC] == len(rec.named(P.SYNC))
-    assert all(s.t1_ns is not None for s in rec.spans)
+            "mvx.model.vfe", "mvx.model.vfe", "mvx.model.cml",
+            "mvx.model.rpn", "mvx.serve.decode", "mvx.serve.readback"]
+    assert len({s.thread for s in spans}) == 1
+    for nms in _named(spans, "mvx.serve.nms"):
+        assert _span_parent(nms).name == "mvx.serve.decode"
+    for up in _named(spans, "mvx.serve.upload"):
+        assert [s.name for s in _children(spans, up)] == [P.SYNC] * 3
+    for rb in _named(spans, "mvx.serve.readback"):
+        assert [s.name for s in _children(spans, rb)] == [P.SYNC] * 4
 
 
 def _train_tensors(seed=0):
@@ -238,26 +245,21 @@ def _anchors():
 
 def test_train_step_records_the_training_vocabulary_in_order():
     state = _state()
-    state.step = 5
     step = make_full_train_step(CFG, _anchors())
     tensors = _train_tensors()
-    with P.recording() as rec:
-        step(state, *tensors)
-    top = [s for s in rec.spans if s.parent is None]
+    _, spans = _traced(lambda: step(state, *tensors))
+    top = _children(spans, None)
     assert [s.name for s in top] == ["mvx.model.voxelize", "mvx.train.step"]
     root = top[1]
-    assert root.id == 5 and state.step == 6
-    kids = _children(rec, root)
+    kids = _children(spans, root)
     assert [s.name for s in kids] == list(TRAINING)
-    assert all(s.id == 5 for s in rec.spans if s.t0_ns >= root.t0_ns)
     forward = kids[1]
-    assert [s.name for s in _children(rec, forward)] == [
+    assert [s.name for s in _children(spans, forward)] == [
         "mvx.model.image", "mvx.model.vfe", "mvx.model.vfe",
         "mvx.model.cml", "mvx.model.rpn"]
     check = kids[4]
-    assert [s.name for s in _children(rec, check)] == [P.SYNC]
-    assert not rec.named("mvx.train.allreduce")
-    assert rec.counts[P.SYNC] == len(rec.named(P.SYNC))
+    assert [s.name for s in _children(spans, check)] == [P.SYNC]
+    assert not _named(spans, "mvx.train.allreduce")
 
 
 def test_mesh_step_records_the_allreduce(tmp_path):
@@ -276,12 +278,11 @@ def test_mesh_step_records_the_allreduce(tmp_path):
         batch = frames_to_batch(pts, nums, imgs, CFG, gt_boxes=gts,
                                 gt_mask=gms, gt_classes=gcs, perm=perm)
         step = make_train_step(CFG, _anchors(), mesh=mesh)
-        with P.recording() as rec:
-            step(state, batch)
+        _, spans = _traced(lambda: step(state, batch))
     finally:
         dist.destroy_process_group()
-    root, = rec.named("mvx.train.step")
-    names = [s.name for s in _children(rec, root)]
+    root, = _named(spans, "mvx.train.step")
+    names = [s.name for s in _children(spans, root)]
     assert names == ["mvx.train.assign", "mvx.train.forward",
                      "mvx.train.loss", "mvx.train.backward",
                      "mvx.train.allreduce", "mvx.train.finite_check",
@@ -324,22 +325,21 @@ def test_nms_counts_one_sync_per_fixpoint_check(K):
     boxes, scores = _chain(K)
     want, keep = _checks(boxes, scores, K, 0.1)
     assert want >= K // 2 // _SWEEPS_PER_CHECK
-    with P.recording() as iou_rec:
-        rotated_iou_bev(boxes, boxes)
-    with P.recording() as rec:
-        idx, _, valid = rotated_nms_bev_batch(boxes, scores,
-                                              iou_threshold=0.1,
-                                              pre_max_size=K,
-                                              post_max_size=K)
+    _, iou_spans = _traced(lambda: rotated_iou_bev(boxes, boxes))
+    (idx, _, valid), spans = _traced(lambda: rotated_nms_bev_batch(
+        boxes, scores, iou_threshold=0.1, pre_max_size=K, post_max_size=K))
     assert int(valid.sum()) == int(keep.sum()) == (K + 1) // 2
-    assert rec.counts[P.SYNC] == want + iou_rec.counts[P.SYNC]
-    assert len(rec.named(P.SYNC)) == rec.counts[P.SYNC]
+    assert len(_named(spans, P.SYNC)) == want + len(_named(iou_spans,
+                                                          P.SYNC))
 
 
 def test_recording_changes_no_detection(det, frames):
+    """Detections with the spans' ranges recorded by the profiler and
+    without."""
     plain = list(det.detect_stream(frames, batch_size=2))
-    with P.recording():
-        recorded = list(det.detect_stream(frames, batch_size=2))
+    recorded, spans = _traced(
+        lambda: list(det.detect_stream(frames, batch_size=2)))
+    assert spans
     for a, b in zip(plain, recorded):
         assert np.array_equal(a.boxes, b.boxes)
         assert np.array_equal(a.scores, b.scores)
@@ -354,8 +354,8 @@ def test_recording_changes_no_loss_or_parameter():
         torch.manual_seed(0)
         state = _state()
         if recorded:
-            with P.recording():
-                metrics = step(state, *tensors)
+            metrics, spans = _traced(lambda: step(state, *tensors))
+            assert spans
         else:
             metrics = step(state, *tensors)
         out.append((metrics, dict(state.model.named_parameters())))
@@ -369,17 +369,19 @@ def test_recording_changes_no_loss_or_parameter():
 
 def test_phase_timer_phases_are_spans():
     timer = PhaseTimer()
-    with P.recording() as rec:
+
+    def work():
         with timer.phase("host_wait"):
             with P.span("mvx.inside"):
                 pass
         with timer.phase("host_wait"):
             pass
+
+    _, spans = _traced(work)
     with timer.phase("host_wait"):
         pass
-    assert [s.name for s in rec.spans] == ["mvx.loop.host_wait",
-                                           "mvx.inside",
-                                           "mvx.loop.host_wait"]
-    assert rec.spans[1].parent == 0
+    assert [s.name for s in spans] == ["mvx.loop.host_wait", "mvx.inside",
+                                       "mvx.loop.host_wait"]
+    assert _span_parent(spans[1]) is spans[0]
     assert timer.counts["host_wait"] == 3
     assert "host_wait" in timer.report()
