@@ -29,6 +29,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from mvxnet_makise_tpu_torch.ops.conv_gemm import (
+    conv2d_gemm,
+    conv_transpose2d_gemm,
+)
 from mvxnet_makise_tpu_torch.utils.profiling import sync_point
 
 
@@ -213,8 +217,26 @@ class DenseReluNormVirtualWeighted(nn.Module):
         return (h - mean) * inv, (hz - mean) * inv
 
 
+def conv2d(m: nn.Module, x: torch.Tensor, gemm: bool = False
+           ) -> torch.Tensor:
+    """``m(x)`` for an ``nn.Conv2d`` or ``nn.ConvTranspose2d``.  With
+    ``gemm`` a stride-1 one runs as im2col and a GEMM in every pass
+    (``ops/conv_gemm``), where cuDNN's heuristics pick FFT; a strided one,
+    which they keep off FFT while ``cudnn.deterministic`` is off (PERF.md),
+    stays with cuDNN, as does a model-axis slice of a layer
+    (``parallel.tensor.ColumnParallel``)."""
+    if not (gemm and isinstance(m, (nn.Conv2d, nn.ConvTranspose2d))
+            and m.stride == (1, 1) and m.dilation == (1, 1)
+            and m.groups == 1):
+        return m(x)
+    if isinstance(m, nn.ConvTranspose2d):
+        return conv_transpose2d_gemm(x, m.weight, m.bias, m.padding)
+    return conv2d_gemm(x, m.weight, m.bias, m.padding)
+
+
 class ConvReluNorm(nn.Module):
-    """Conv2d -> ReLU -> standardize (per sample, over H and W)."""
+    """Conv2d -> ReLU -> standardize (per sample, over H and W); ``gemm``
+    as :func:`conv2d`."""
 
     def __init__(self, in_features: int, features: int, kernel: int,
                  stride: int, padding: int, eps: float = 1e-6):
@@ -225,13 +247,14 @@ class ConvReluNorm(nn.Module):
         self.batch_stats = False
         self.stats_group = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return standardize(torch.relu(self.conv(x)), self.eps,
+    def forward(self, x: torch.Tensor, gemm: bool = False) -> torch.Tensor:
+        return standardize(torch.relu(conv2d(self.conv, x, gemm)), self.eps,
                            batch=self.batch_stats, group=self.stats_group)
 
 
 class DeconvReluNorm(nn.Module):
-    """ConvTranspose2d -> ReLU -> standardize (per sample)."""
+    """ConvTranspose2d -> ReLU -> standardize (per sample); ``gemm`` as
+    :func:`conv2d`."""
 
     def __init__(self, in_features: int, features: int, kernel: int,
                  stride: int, padding: int, eps: float = 1e-6):
@@ -242,6 +265,7 @@ class DeconvReluNorm(nn.Module):
         self.batch_stats = False
         self.stats_group = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return standardize(torch.relu(self.deconv(x)), self.eps,
-                           batch=self.batch_stats, group=self.stats_group)
+    def forward(self, x: torch.Tensor, gemm: bool = False) -> torch.Tensor:
+        return standardize(torch.relu(conv2d(self.deconv, x, gemm)),
+                           self.eps, batch=self.batch_stats,
+                           group=self.stats_group)

@@ -9,8 +9,10 @@ in).  The dense CML scatters the voxel rows into the (nz, nx, ny, C) grid
 (K4, or its plain version) and runs three ``F.conv3d``; ``make_cml``
 picks the form by ``cml_mode``.  conv2, conv3 and the RPN are plain
 ``F.conv3d`` / ``nn.Conv2d`` / ``nn.ConvTranspose2d``, as they were XLA
-convolutions in JAX.  Convolutions run channels-first (B, C, D, H, W)
-with H = nx and W = ny; the RPN returns channels-last maps like JAX.
+convolutions in JAX; under autograd the RPN's stride-1 ones run as
+im2col and a GEMM (``RPN.forward``).  Convolutions run channels-first
+(B, C, D, H, W) with H = nx and W = ny; the RPN returns channels-last
+maps like JAX.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from mvxnet_makise_tpu_torch.ops.column_merge import (
 )
 from mvxnet_makise_tpu_torch.ops.scatter import scatter_voxels_to_grid
 from mvxnet_makise_tpu_torch.ops.scatter_grid import scatter_to_grid
+from mvxnet_makise_tpu_torch.utils.profiling import span
 
 # reference RPN shape: stage channels, extra convs per stage, deconv width
 REFERENCE_RPN_TRUNK = ((128, 128, 256), (3, 5, 5), 256)
@@ -246,25 +249,47 @@ class RPN(nn.Module):
 
     def forward(self, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Samples run one at a time, which computes the same function
-        under per-sample norms: at the default grid, cuDNN's heuristics
-        pick an FFT algorithm for blk1's batched 128-channel 3x3
-        convolutions that is several times slower than batch-1 calls
-        (PERF.md).  Batch-wide norms (``batch_stats``) take the batch in
-        one call."""
+        """Two plans for one function, chosen by whether autograd records
+        the call (per-sample norms keep the batch axis, so a batched call
+        computes what per-sample calls do).
+
+        Without gradients (serving, the sensor stream) the samples run one
+        at a time through cuDNN: at the default grid its heuristics pick
+        an FFT forward for blk1's 128-channel 3x3 convolutions at batch 4
+        that is about twice as slow as four batch-1 calls (PERF.md).
+        With gradients (training) the batch runs in one call, and every
+        stride-1 3x3 convolution, deconv1 included, runs as im2col and a
+        GEMM in all three passes (``blocks.conv2d``, ``ops/conv_gemm``):
+        cuDNN sends those to FFT at batch 1 and batch 4, in NCHW and NHWC
+        alike, and deconv1's data gradient alone ran as ~132,000 launches
+        of cuBLAS gemv a step.  The strided convolutions and the 1x1 heads
+        stay with cuDNN, which runs them without FFT in training's
+        settings (``cudnn.deterministic`` off).  The batched plan runs
+        inside the span ``mvx.model.rpn.batched``.  Batch-wide norms
+        (``batch_stats``) take the batch in one call in both plans."""
+        if torch.is_grad_enabled():
+            with span("mvx.model.rpn.batched"):
+                return self.forward_one(x, gemm=True)
         if self.batch_stats:
             return self.forward_one(x)
         maps = [self.forward_one(x[i:i + 1]) for i in range(x.shape[0])]
         return (torch.cat([m[0] for m in maps]),
                 torch.cat([m[1] for m in maps]))
 
-    def forward_one(self, x: torch.Tensor
+    def forward_one(self, x: torch.Tensor, gemm: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        x1 = self.blk1(x)
-        x2 = self.blk2(x1)
-        x3 = self.blk3(x2)
-        feat = torch.cat([self.deconv1(x1), self.deconv2(x2),
-                          self.deconv3(x3)], dim=1)
+        """The RPN on ``x`` in one call; ``gemm``: stride-1 convolutions
+        as im2col and a GEMM (``blocks.conv2d``)."""
+        def run(block, h):
+            for layer in block:
+                h = layer(h, gemm)
+            return h
+
+        x1 = run(self.blk1, x)
+        x2 = run(self.blk2, x1)
+        x3 = run(self.blk3, x2)
+        feat = torch.cat([self.deconv1(x1, gemm), self.deconv2(x2, gemm),
+                          self.deconv3(x3, gemm)], dim=1)
         score = torch.sigmoid(self.cls(feat))
         reg = self.reg(feat)
         return score.permute(0, 2, 3, 1), reg.permute(0, 2, 3, 1)

@@ -26,8 +26,9 @@ records' ``dtype`` says which ran.  Rows, in order (``STAGES``):
   the column CML's conv2 on conv1's depth-minor output (with the
   relayout to channels-first that the column CML does before it) and
   conv3 on conv2's;
-* ``rpn only`` (``:170``): the RPN on the (C, D)-folded CML output, run
-  sample by sample as the model runs it;
+* ``rpn only`` (``:170``): the RPN on the (C, D)-folded CML output, as
+  the model runs it with gradients on (``RPN.forward``'s training plan:
+  the batch in one call);
 * ``full cml column (from vfeat)`` (``:173``);
 * ``full branch dense3d`` and ``full branch column`` (``:179``,
   ``:183``): the whole branch in each CML form, on one set of weights.

@@ -28,6 +28,7 @@ exact.  The batched decode and NMS on the card pick the CPU's boxes
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from mvxnet_makise_tpu_torch.config import Config
 from mvxnet_makise_tpu_torch.data.kitti import KittiFrame
@@ -35,6 +36,7 @@ from mvxnet_makise_tpu_torch.data.synthetic import synthetic_frame
 from mvxnet_makise_tpu_torch.eval.decode import decode_batch
 from mvxnet_makise_tpu_torch.geometry.boxes import decode_boxes
 from mvxnet_makise_tpu_torch.models.mvxnet import build_model
+from mvxnet_makise_tpu_torch.models.voxelnet import RPN
 from mvxnet_makise_tpu_torch.ops import column_merge, gather, scatter_grid
 from mvxnet_makise_tpu_torch.ops.assign import create_anchors
 from mvxnet_makise_tpu_torch.ops.nms import rotated_nms_bev_batch
@@ -963,3 +965,69 @@ def test_train_step_on_card_matches_cpu(cuda, mode, tmp_path):
     for a, b in zip(state.model.state_dict().values(),
                     other.model.state_dict().values()):
         assert torch.equal(a, b)
+
+
+# kernels one forward and backward of the RPN's training plan launches at
+# (4, 128, 352, 400); 904 measured on an H100 (torch 2.11, cuDNN 9.22),
+# where the per-sample NCHW plan launched 136,743
+RPN_TRAIN_LAUNCHES = 1200
+
+
+def _rpn_maps_and_grads(rpn, x, fn, ws, wr):
+    x = x.detach().clone().requires_grad_(True)
+    rpn.zero_grad(set_to_none=True)
+    score, reg = fn(x)
+    ((score * ws).sum() + (reg * wr).sum()).backward()
+    out = {"score": score, "reg": reg, "input": x.grad}
+    out.update((n, p.grad) for n, p in rpn.named_parameters())
+    return {k: v.detach().double().cpu() for k, v in out.items()}
+
+
+def _rpn_per_sample(rpn):
+    def fn(x):
+        maps = [rpn.forward_one(x[i:i + 1]) for i in range(x.shape[0])]
+        return (torch.cat([m[0] for m in maps]),
+                torch.cat([m[1] for m in maps]))
+    return fn
+
+
+def test_rpn_training_plan_on_card(cuda, monkeypatch):
+    """The RPN under autograd at the benchmark's grid, batch 4, float32
+    without TF32 and with ``cudnn.deterministic`` off, as training runs
+    (a ``Detector`` made earlier in the process turns it on): one forward
+    and backward launches no FFT or gemv kernel and at most
+    ``RPN_TRAIN_LAUNCHES`` kernels, and its maps and gradients sit as
+    close to the per-sample NCHW plan as that plan's own second run does
+    (norm-relative, 10x, floor 1e-5)."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)
+    torch.manual_seed(0)
+    rpn = RPN(128).to(cuda)
+    for m in rpn.modules():
+        if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
+            torch.nn.init.constant_(m.bias, 1.0)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    scale = torch.tensor([1.0, 10.0, 0.1, 3.0], device=cuda)
+    x = torch.randn(4, 128, 352, 400, device=cuda, generator=g)
+    x = x * scale[:, None, None, None]
+    ws = torch.randn(4, 176, 200, 2, device=cuda, generator=g)
+    wr = torch.randn(4, 176, 200, 14, device=cuda, generator=g)
+
+    _rpn_maps_and_grads(rpn, x, rpn, ws, wr)             # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        plan = _rpn_maps_and_grads(rpn, x, rpn, ws, wr)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type.name == "CUDA"
+             and not e.name.startswith(("Memcpy", "Memset"))]
+    assert not [n for n in names if "fft" in n.lower() or "gemv" in n.lower()]
+    assert 0 < len(names) <= RPN_TRAIN_LAUNCHES, len(names)
+
+    ref = _rpn_maps_and_grads(rpn, x, _rpn_per_sample(rpn), ws, wr)
+    again = _rpn_maps_and_grads(rpn, x, _rpn_per_sample(rpn), ws, wr)
+    assert plan.keys() == ref.keys()
+    for k in ref:
+        norm = float(ref[k].norm())
+        noise = float((again[k] - ref[k]).norm()) / norm
+        assert float((plan[k] - ref[k]).norm()) / norm <= max(10 * noise,
+                                                              1e-5), k

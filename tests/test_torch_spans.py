@@ -5,7 +5,8 @@ With no profiler running a span is one shared no-op object; under
 as the spans are and holding the work done inside, and a thread the
 profiler does not trace gets the no-op.  ``Detector.detect_stream``
 opens, for every batch, the serving vocabulary; a training step opens
-the training vocabulary in order (the all-reduce under a mesh); NMS
+the training vocabulary in order (the all-reduce under a mesh), the
+RPN's batched training plan once a step and never in serving; NMS
 opens one ``mvx.sync`` span per fixpoint check.  Tracing changes no
 detection, loss or parameter.
 """
@@ -210,6 +211,8 @@ def test_detect_stream_records_the_serving_vocabulary(det, frames):
             "mvx.model.vfe", "mvx.model.vfe", "mvx.model.cml",
             "mvx.model.rpn", "mvx.serve.decode", "mvx.serve.readback"]
     assert len({s.thread for s in spans}) == 1
+    # serving runs the RPN without gradients: never the training plan
+    assert not _named(spans, "mvx.model.rpn.batched")
     for nms in _named(spans, "mvx.serve.nms"):
         assert _span_parent(nms).name == "mvx.serve.decode"
     for up in _named(spans, "mvx.serve.upload"):
@@ -257,6 +260,11 @@ def test_train_step_records_the_training_vocabulary_in_order():
     assert [s.name for s in _children(spans, forward)] == [
         "mvx.model.image", "mvx.model.vfe", "mvx.model.vfe",
         "mvx.model.cml", "mvx.model.rpn"]
+    # the RPN's training plan: one batched call inside the RPN's span
+    rpn = _children(spans, forward)[-1]
+    batched = _named(spans, "mvx.model.rpn.batched")
+    assert len(batched) == 1 and _span_parent(batched[0]) is rpn
+    assert _children(spans, rpn) == batched
     check = kids[4]
     assert [s.name for s in _children(spans, check)] == [P.SYNC]
     assert not _named(spans, "mvx.train.allreduce")
@@ -282,6 +290,9 @@ def test_mesh_step_records_the_allreduce(tmp_path):
     finally:
         dist.destroy_process_group()
     root, = _named(spans, "mvx.train.step")
+    rpn, = _named(spans, "mvx.model.rpn")
+    batched, = _named(spans, "mvx.model.rpn.batched")
+    assert _span_parent(batched) is rpn
     names = [s.name for s in _children(spans, root)]
     assert names == ["mvx.train.assign", "mvx.train.forward",
                      "mvx.train.loss", "mvx.train.backward",
