@@ -84,14 +84,6 @@ TOOLS = {bench_kernels: ("BENCHES", "kernel"),
 SVFE_TOL = 1e-10
 
 
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
-
-
 @pytest.fixture(scope="module")
 def tiny(tmp_path_factory):
     path = tmp_path_factory.mktemp("bench") / "tiny.yaml"

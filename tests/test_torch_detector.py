@@ -38,19 +38,13 @@ from mvxnet_makise_tpu_torch.models.mvxnet import build_model
 from mvxnet_makise_tpu_torch.models.weights import load_jax_params
 from mvxnet_makise_tpu_torch.ops.assign import create_anchors
 from mvxnet_makise_tpu_torch.serve import Detector
+from _jax_ref import jit_dividing
 
 KW = dict(velo_range=(0.0, -8.0, -3.0, 12.8, 8.0, 1.0),
           voxel_shape=(32, 40, 10), image_size=(64, 96), max_points=1024,
           max_voxels=256, max_boxes=4, samples_per_voxel=8,
           assign_window=6, image_min_side=0)
 CFG = Config(**KW)
-
-
-def _run_dividing(fn, *args):
-    """``fn(*args)`` compiled without XLA's algebraic simplifier."""
-    compiled = jax.jit(fn).lower(*args).compile(
-        compiler_options={"xla_disable_hlo_passes": "algsimp"})
-    return compiled(*args)
 
 
 def _random_params(model, jcfg, rng):
@@ -97,13 +91,13 @@ def slice_run():
     anchors = jnp.asarray(create_anchors(CFG.feature_map_shape,
                                          CFG.velo_range, CFG.anchor_sizes))
     with jax.enable_x64(True):
-        b = _run_dividing(lambda p, n, i: jax_batch(
-            p, n, i, jnp.zeros((2, 1, 7)), jnp.zeros((2, 1), bool), jcfg),
+        b = jit_dividing(lambda p, n, i: jax_batch(
+            p, n, i, jnp.zeros((2, 1, 7)), jnp.zeros((2, 1), bool), jcfg))(
             jnp.asarray(pts, jnp.float64), jnp.asarray(nums),
             jnp.asarray(imgs, jnp.float64))
         p64 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), params)
-        score, reg = _run_dividing(make_apply(model, jcfg), p64,
-                                   *_model_inputs(b, True))
+        score, reg = jit_dividing(make_apply(model, jcfg))(
+            p64, *_model_inputs(b, True))
     decode = jax.jit(lambda s, r: jax_decode_predictions(s, r, anchors))
     want = [decode(jnp.asarray(s, jnp.float32), jnp.asarray(r, jnp.float32))
             for s, r in zip(score, reg)]

@@ -15,10 +15,8 @@ at batch 2 exercise the padded tail.
 """
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from mvxnet_makise_tpu.config import Config as JaxConfig
 from mvxnet_makise_tpu.data.kitti import KittiFrame as JaxKittiFrame
@@ -31,6 +29,7 @@ from mvxnet_makise_tpu_torch.data.synthetic import synthetic_frame
 from mvxnet_makise_tpu_torch.eval.runner import detect_for_eval, run_eval
 from mvxnet_makise_tpu_torch.models.mvxnet import build_model
 from mvxnet_makise_tpu_torch.models.weights import load_jax_params
+from _jax_ref import jit_without_algsimp
 from test_torch_detector import _random_params
 
 KW = dict(velo_range=(0.0, -8.0, -3.0, 12.8, 8.0, 1.0),
@@ -38,16 +37,6 @@ KW = dict(velo_range=(0.0, -8.0, -3.0, 12.8, 8.0, 1.0),
           max_voxels=256, max_boxes=4, samples_per_voxel=8,
           assign_window=6, image_min_side=0)
 CFG = Config(**KW)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    """Two intra-op threads: the suite runs several test processes at once,
-    and each would otherwise start one thread per core."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 def _frames(rng, n=5):
@@ -63,28 +52,6 @@ def _frames(rng, n=5):
         port.append(KittiFrame(calib=calib, **common))
         jax_frames.append(JaxKittiFrame(calib=JaxCalib(*calib), **common))
     return port, jax_frames
-
-
-def _jit_without_algsimp(decoded):
-    """A stand-in for ``jax.jit`` that compiles ``infer`` on float64
-    inputs without the algebraic simplifier, recording its outputs."""
-    real_jit = jax.jit
-
-    def jit(fn):
-        if fn.__name__ != "infer":
-            return real_jit(fn)
-
-        def run(*args):
-            args = jax.tree.map(
-                lambda a: jnp.asarray(a, jnp.float64)
-                if np.asarray(a).dtype == np.float32 else jnp.asarray(a),
-                args)
-            out = real_jit(fn).lower(*args).compile(
-                compiler_options={"xla_disable_hlo_passes": "algsimp"})(*args)
-            decoded.append(jax.device_get(out))
-            return out
-        return run
-    return jit
 
 
 @pytest.fixture(scope="module")
@@ -107,7 +74,7 @@ def eval_run():
 
     decoded = []
     with pytest.MonkeyPatch.context() as mp, jax.enable_x64(True):
-        mp.setattr(jax, "jit", _jit_without_algsimp(decoded))
+        mp.setattr(jax, "jit", jit_without_algsimp(decoded))
         want = jax_runner.run_eval(jcfg, jax_frames, params, model, True,
                                    batch_size=2)
     return dict(dets=dets, result=result, want=want, decoded=decoded,

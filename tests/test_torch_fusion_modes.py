@@ -60,6 +60,7 @@ from mvxnet_makise_tpu_torch.models.voxelnet import MiddleConvLayersColumn
 from mvxnet_makise_tpu_torch.models.voxelnet_pm import VoxelNetBranchPM
 from mvxnet_makise_tpu_torch.models.weights import load_jax_params
 from mvxnet_makise_tpu_torch.train.step import forward, frames_to_batch
+from _jax_ref import jit_dividing
 
 KW = dict(velo_range=(0.0, -8.0, -3.0, 12.8, 8.0, 1.0),
           voxel_shape=(32, 40, 10), image_size=(64, 96), max_points=1024,
@@ -71,23 +72,6 @@ BF16_TRUNK = dict(rpn_channels=(32, 32, 64), rpn_extra=(0, 0, 0),
                   rpn_deconv_channels=32)
 BF16_FACTOR = 2.0
 MODES = ("slot", "point")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    """Two intra-op threads: the suite runs several test processes at
-    once."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
-
-
-def _run_dividing(fn, *args):
-    """``fn(*args)`` compiled without XLA's algebraic simplifier."""
-    compiled = jax.jit(fn).lower(*args).compile(
-        compiler_options={"xla_disable_hlo_passes": "algsimp"})
-    return compiled(*args)
 
 
 def _models(jcfg):
@@ -211,9 +195,7 @@ def modes_run():
         f64 = lambda t: jax.tree.map(  # noqa: E731
             lambda a: jnp.asarray(a, jnp.float64), t)
         args = (f64(params), f64(lidar_params))
-        compiled = jax.jit(_apply_all(models, jcfg, cast=False)).lower(
-            *args, *_jax_arrays(arrays)).compile(
-            compiler_options={"xla_disable_hlo_passes": "algsimp"})
+        compiled = jit_dividing(_apply_all(models, jcfg, cast=False))
         jax_maps = jax.tree.map(np.asarray,
                                 compiled(*args, *_jax_arrays(arrays)))
     port = {}
@@ -300,7 +282,7 @@ def bf16_run(modes_run):
         return (_apply_all(models, jcfg, cast=True)(p, lp, pts, nums, imgs),
                 _apply_all(models, jcfg, cast=False)(p, lp, pts, nums,
                                                      imgs))
-    bf16, f32 = _run_dividing(both, params, lp, *jarr)
+    bf16, f32 = jit_dividing(both)(params, lp, *jarr)
     port = {mode: _port_maps(Config(**kw, fusion_mode=mode), params,
                              arrays)[1] for mode in MODES}
     return dict(bf16=bf16, f32=f32, port=port)

@@ -24,6 +24,7 @@ from mvxnet_makise_tpu.models.resnet_fpn import ResNet50FPN as JaxFPN
 from mvxnet_makise_tpu_torch.models import image_head
 from mvxnet_makise_tpu_torch.models.resnet_fpn import ResNet50FPN
 from mvxnet_makise_tpu_torch.models.weights import load_jax_params
+from _jax_ref import jit_dividing
 
 IMG = (64, 96)
 
@@ -128,8 +129,7 @@ def test_point_image_head_matches_jax():
     with jax.enable_x64(True):
         args = (_x64(params), jnp.asarray(images[:1]), jnp.asarray(rc[:1]),
                 jnp.asarray(mask[:1]), jnp.asarray(n_virtual[0]))
-        apply = jax.jit(jm.apply).lower(*args).compile(
-            compiler_options={"xla_disable_hlo_passes": "algsimp"})
+        apply = jit_dividing(jm.apply)
         outs = [apply(args[0], jnp.asarray(images[i:i + 1]),
                       jnp.asarray(rc[i:i + 1]), jnp.asarray(mask[i:i + 1]),
                       jnp.asarray(n_virtual[i])) for i in range(B)]

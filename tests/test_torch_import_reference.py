@@ -51,6 +51,7 @@ from mvxnet_makise_tpu_torch.train.step import (
     lidar_inputs,
     model_inputs,
 )
+from _jax_ref import jit_dividing
 
 KW = dict(velo_range=(0.0, -8.0, -3.0, 12.8, 8.0, 1.0),
           voxel_shape=(32, 40, 10), image_size=(64, 96), max_points=1024,
@@ -202,14 +203,6 @@ def _frames_arrays():
                           CFG.max_points, len(frames))
 
 
-def _run_dividing(fn, *args):
-    """``fn(*args)`` compiled without XLA's algebraic simplifier (it turns
-    divisions by constants into multiplications one ulp apart)."""
-    compiled = jax.jit(fn).lower(*args).compile(
-        compiler_options={"xla_disable_hlo_passes": "algsimp"})
-    return compiled(*args)
-
-
 @torch.no_grad()
 def test_imported_maps_match_jax_in_float64(weights):
     with_images, _, ref = weights
@@ -225,13 +218,13 @@ def test_imported_maps_match_jax_in_float64(weights):
 
     jparams = jax_import(ref, with_images=with_images)
     with jax.enable_x64(True):
-        jb = _run_dividing(lambda p, n, i: jax_batch(
-            p, n, i, jnp.zeros((2, 1, 7)), jnp.zeros((2, 1), bool), JCFG),
+        jb = jit_dividing(lambda p, n, i: jax_batch(
+            p, n, i, jnp.zeros((2, 1, 7)), jnp.zeros((2, 1), bool), JCFG))(
             jnp.asarray(pts, jnp.float64), jnp.asarray(nums),
             jnp.asarray(imgs, jnp.float64))
         p64 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), jparams)
-        want = _run_dividing(make_apply(_jax_model(with_images), JCFG), p64,
-                             *_model_inputs(jb, with_images))
+        want = jit_dividing(make_apply(_jax_model(with_images), JCFG))(
+            p64, *_model_inputs(jb, with_images))
     for g, w in zip(got, want):
         w = np.asarray(w)
         np.testing.assert_allclose(g.numpy(), w, rtol=0,

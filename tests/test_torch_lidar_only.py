@@ -75,7 +75,8 @@ from mvxnet_makise_tpu_torch.train.step import (
     frames_to_batch,
     make_train_step,
 )
-from test_torch_eval_runner import _frames, _jit_without_algsimp
+from _jax_ref import jit_dividing, jit_without_algsimp
+from test_torch_eval_runner import _frames
 from test_torch_tools import _yaml, tree  # noqa: F401  (a fixture)
 
 KW = dict(velo_range=(0.0, -8.0, -3.0, 12.8, 8.0, 1.0),
@@ -95,23 +96,6 @@ BF16_TRUNK = dict(rpn_channels=(32, 32, 64), rpn_extra=(0, 0, 0),
                   rpn_deconv_channels=32)
 BF16_MAPS_TOL = 1e-4
 BF16_GRAD_TOL = 2 ** -7
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    """Two intra-op threads: the suite runs several test processes at
-    once."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
-
-
-def _run_dividing(fn, *args):
-    """``fn(*args)`` compiled without XLA's algebraic simplifier."""
-    compiled = jax.jit(fn).lower(*args).compile(
-        compiler_options={"xla_disable_hlo_passes": "algsimp"})
-    return compiled(*args)
 
 
 def _jax_model():
@@ -192,9 +176,9 @@ def lidar_run():
 
         args64 = (jnp.asarray(pts, jnp.float64), jnp.asarray(nums),
                   jnp.asarray(imgs, jnp.float64))
-        score, reg = _run_dividing(maps, p64, *args64)
-        (loss, metrics), grads = _run_dividing(
-            step, p64, *args64, jnp.asarray(gts, jnp.float64),
+        score, reg = jit_dividing(maps)(p64, *args64)
+        (loss, metrics), grads = jit_dividing(step)(
+            p64, *args64, jnp.asarray(gts, jnp.float64),
             jnp.asarray(gms), jnp.asarray(gcs))
         state = JaxTrainState.create(apply_fn, p64, jax_optimizer(jcfg))
         new_params = state.apply_gradients(grads).params
@@ -292,8 +276,8 @@ def lidar_bf16_run(lidar_run):
             lambda q: jax_compute_loss(q, batch, targets, anchors, apply_fn,
                                        jcfg, False), has_aux=True)(p)
     jarrays = [jnp.asarray(a) for a in arrays]
-    score, reg = _run_dividing(maps, params, *jarrays[:3])
-    (loss, _), grads = _run_dividing(step, params, *jarrays)
+    score, reg = jit_dividing(maps)(params, *jarrays[:3])
+    (loss, _), grads = jit_dividing(step)(params, *jarrays)
 
     port = build_model(cfg, seed=None, device="cpu", with_images=False)
     load_jax_params(port, params)
@@ -374,7 +358,7 @@ def test_lidar_only_run_eval_matches_jax(lidar_run):
                    with_images=False)
     decoded = []
     with pytest.MonkeyPatch.context() as mp, jax.enable_x64(True):
-        mp.setattr(jax, "jit", _jit_without_algsimp(decoded))
+        mp.setattr(jax, "jit", jit_without_algsimp(decoded))
         want = jax_runner.run_eval(JaxConfig(**KW), jax_frames,
                                    lidar_run["params"], lidar_run["model"],
                                    False, batch_size=2)

@@ -50,9 +50,10 @@ from mvxnet_makise_tpu_torch.train.step import (
     frames_to_batch,
     make_train_step,
 )
+from _jax_ref import jit_dividing
 from test_torch_fusion_modes import _random_params, _shapes
 from test_torch_remat import _step, _tensors
-from test_torch_train import _arrays, _frames, _rel, _run_dividing
+from test_torch_train import _arrays, _frames, _rel
 from test_torch_voxel_fusion import _random_params as _voxel_params
 
 KW = dict(velo_range=(0.0, -8.0, -3.0, 12.8, 8.0, 1.0),
@@ -61,16 +62,6 @@ KW = dict(velo_range=(0.0, -8.0, -3.0, 12.8, 8.0, 1.0),
           assign_window=6, image_min_side=0, batch_size=2)
 TOL = 1e-8
 MODELS = ("pm", "voxel", "lidar")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    """Two intra-op threads: the suite runs several test processes at
-    once."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 def _config(name, cls=Config, **kw):
@@ -159,8 +150,8 @@ def scope_run():
             step = jax.value_and_grad(loss_fn, has_aux=True)(rest, train)
             return maps, step
 
-        maps, ((loss, metrics), grads) = _run_dividing(
-            run, p64, jnp.asarray(arrays[0], jnp.float64),
+        maps, ((loss, metrics), grads) = jit_dividing(run)(
+            p64, jnp.asarray(arrays[0], jnp.float64),
             jnp.asarray(arrays[1]), jnp.asarray(arrays[2], jnp.float64),
             jnp.asarray(arrays[3], jnp.float64), jnp.asarray(arrays[4]),
             jnp.asarray(arrays[5]))

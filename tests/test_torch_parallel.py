@@ -87,9 +87,9 @@ TOL = 1e-10
 # taken at those parameters; measured on a CPU: parameters 2.2e-7 apart
 # after two steps, the second step's loss 4e-8 relative
 AFTER_UPDATE_TOL = 1e-6
-# seconds a spawned world may take before the test fails (its work takes
-# ~50 s alone on a CPU, several times that beside a full suite), and the
-# collectives' timeout
+# seconds a spawned world may take before the test fails (the ``worlds``
+# fixture takes ~100 s inside a full 6-worker tier-1 run on an 8-core CPU
+# at load average ~11, 155-207 s at ~24), and the collectives' timeout
 JOIN_S = 480
 COLLECTIVE_S = 120
 
@@ -331,14 +331,6 @@ def _join(procs, out_dir):
     assert codes == [0] * len(procs), f"rank exit codes {codes}"
     return [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
                        weights_only=False) for r in range(len(procs))]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 def _jax_lidar():

@@ -40,14 +40,6 @@ use_bf16: true
 """
 
 
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
-
-
 def _records(main, args):
     out = io.StringIO()
     with contextlib.redirect_stdout(out):

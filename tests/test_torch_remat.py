@@ -54,7 +54,8 @@ from mvxnet_makise_tpu_torch.train.step import (
     frames_to_batch,
     make_train_step,
 )
-from test_torch_train import _random_params, _run_dividing
+from _jax_ref import jit_dividing
+from test_torch_train import _random_params
 
 KW = dict(velo_range=(0.0, -8.0, -3.0, 12.8, 8.0, 1.0),
           voxel_shape=(32, 40, 10), image_size=(64, 96), max_points=1024,
@@ -62,16 +63,6 @@ KW = dict(velo_range=(0.0, -8.0, -3.0, 12.8, 8.0, 1.0),
           assign_window=6, image_min_side=0, batch_size=2)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(ROOT, "configs", "*.yaml")))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    """Two intra-op threads: the suite runs several test processes at
-    once."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 def _tensors(cfg, seed=0):
@@ -177,8 +168,8 @@ def test_remat_step_matches_jax_remat_step():
                               shuffle_key=key, gt_classes=gcs)
             return jax.value_and_grad(loss_fn)(p, batch)
 
-        loss, grads = _run_dividing(
-            step, p64, jnp.asarray(pts, jnp.float64), jnp.asarray(nums),
+        loss, grads = jit_dividing(step)(
+            p64, jnp.asarray(pts, jnp.float64), jnp.asarray(nums),
             jnp.asarray(imgs, jnp.float64), jnp.asarray(gts, jnp.float64),
             jnp.asarray(gms), jnp.asarray(gcs))
         want = mvxnet_state(jax.device_get(grads)["params"])

@@ -32,14 +32,6 @@ KW = dict(velo_range=(0.0, -8.0, -3.0, 12.8, 8.0, 1.0),
 CFG = Config(**KW)
 
 
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
-
-
 @pytest.fixture(scope="module")
 def frames():
     rng = np.random.default_rng(0)

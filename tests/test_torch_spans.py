@@ -56,14 +56,6 @@ TRAINING = ("mvx.train.assign", "mvx.train.forward", "mvx.train.loss",
             "mvx.train.optimizer")
 
 
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
-
-
 @pytest.fixture(scope="module")
 def frames():
     rng = np.random.default_rng(0)

@@ -57,16 +57,6 @@ KW = dict(velo_range=(0.0, -8.0, -3.0, 12.8, 8.0, 1.0),
           image_min_side=0, batch_size=2, num_workers=2)
 
 
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    """Two intra-op threads: the suite runs several test processes at once,
-    and each would otherwise start one thread per core."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
-
-
 def _yaml(path, **extra):
     with open(path, "w") as f:
         for k, v in dict(KW, **extra).items():

@@ -68,19 +68,13 @@ from mvxnet_makise_tpu_torch.train.step import (
     make_train_step,
     model_inputs,
 )
+from _jax_ref import jit_dividing
 
 KW = dict(velo_range=(0.0, -8.0, -3.0, 12.8, 8.0, 1.0),
           voxel_shape=(32, 40, 10), image_size=(64, 96), max_points=1024,
           max_voxels=256, max_boxes=4, samples_per_voxel=8,
           assign_window=6, image_min_side=0, batch_size=2)
 CFG = Config(**KW)
-
-
-def _run_dividing(fn, *args):
-    """``fn(*args)`` compiled without XLA's algebraic simplifier."""
-    compiled = jax.jit(fn).lower(*args).compile(
-        compiler_options={"xla_disable_hlo_passes": "algsimp"})
-    return compiled(*args)
 
 
 def _random_params(model, jcfg, rng):
@@ -168,8 +162,8 @@ def step_run(request):
                               shuffle_key=key, gt_classes=gcs)
             return jax.value_and_grad(loss_fn, has_aux=True)(p, batch)
 
-        (loss, metrics), grads = _run_dividing(
-            step, p64, jnp.asarray(pts, jnp.float64), jnp.asarray(nums),
+        (loss, metrics), grads = jit_dividing(step)(
+            p64, jnp.asarray(pts, jnp.float64), jnp.asarray(nums),
             jnp.asarray(imgs, jnp.float64), jnp.asarray(gts, jnp.float64),
             jnp.asarray(gms), jnp.asarray(gcs))
         state = JaxTrainState.create(apply_fn, p64, jax_optimizer(jcfg))

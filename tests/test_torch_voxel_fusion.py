@@ -68,8 +68,9 @@ from mvxnet_makise_tpu_torch.train.step import (
     frames_to_batch,
     make_train_step,
 )
+from _jax_ref import jit_dividing
 from test_torch_tools import _yaml, tree  # noqa: F401  (a fixture)
-from test_torch_train import _arrays, _frames, _rel, _run_dividing
+from test_torch_train import _arrays, _frames, _rel
 
 KW = dict(velo_range=(0.0, -8.0, -3.0, 12.8, 8.0, 1.0),
           voxel_shape=(32, 40, 10), image_size=(64, 96), max_points=1024,
@@ -81,16 +82,6 @@ TOL = 1e-8
 BF16_TRUNK = dict(rpn_channels=(32, 32, 64), rpn_extra=(0, 0, 0),
                   rpn_deconv_channels=32)
 BF16_FACTOR = 2.0
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    """Two intra-op threads: the suite runs several test processes at
-    once."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 def _jax_model(jcfg):
@@ -178,8 +169,8 @@ def voxel_run():
             return (jax.value_and_grad(loss_fn, has_aux=True)(
                 rest, ext, batch), batch.voxels)
 
-        ((loss, (metrics, score, reg)), grads), voxels = _run_dividing(
-            step, rest, ext, jnp.asarray(pts, jnp.float64),
+        ((loss, (metrics, score, reg)), grads), voxels = jit_dividing(step)(
+            rest, ext, jnp.asarray(pts, jnp.float64),
             jnp.asarray(nums), jnp.asarray(imgs, jnp.float64),
             jnp.asarray(gts, jnp.float64), jnp.asarray(gms),
             jnp.asarray(gcs))
@@ -298,8 +289,8 @@ def test_voxel_fusion_bf16_maps_match_jax(voxel_run):
         return (apply_fn(jax_cast(p, True), cb.voxels, cb.coords, cb.vmask,
                          cb.images),
                 apply_fn(p, b.voxels, b.coords, b.vmask, b.images))
-    bf16, f32 = _run_dividing(both, params, jnp.asarray(pts),
-                              jnp.asarray(nums), jnp.asarray(imgs))
+    bf16, f32 = jit_dividing(both)(params, jnp.asarray(pts),
+                             jnp.asarray(nums), jnp.asarray(imgs))
     port = build_model(cfg, seed=None, device="cpu")
     load_jax_params(port, params)
     with torch.no_grad():
