@@ -2,9 +2,12 @@
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import functools
+from typing import Optional, Sequence, Union
 
 import torch
+
+from mvxnet_makise_tpu_torch.utils.profiling import sync_point
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -50,3 +53,19 @@ def parameter_dtype(module: torch.nn.Module,
         if p.is_floating_point():
             return p.dtype
     return default
+
+
+def device_constant(values: Sequence, dtype: torch.dtype,
+                    device: torch.device) -> torch.Tensor:
+    """``torch.tensor(values, dtype=dtype, device=device)``, made once per
+    values, dtype and device and then shared: callers must not write to
+    it.  Made on the card it is a copy from pageable host memory, which
+    waits for the card and which a CUDA graph cannot capture."""
+    return _constant(tuple(values), dtype, torch.device(device))
+
+
+@functools.lru_cache(maxsize=64)
+def _constant(values: tuple, dtype: torch.dtype,
+              device: torch.device) -> torch.Tensor:
+    with sync_point():
+        return torch.tensor(values, dtype=dtype, device=device)

@@ -17,10 +17,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mvxnet_makise_tpu_torch.device import device_constant
 from mvxnet_makise_tpu_torch.models.blocks import DenseReluNormVirtual
 from mvxnet_makise_tpu_torch.models.resnet_fpn import ResNet50FPN
 from mvxnet_makise_tpu_torch.ops.gather import fpn_gather
-from mvxnet_makise_tpu_torch.utils.profiling import sync_point
 
 # torchvision GeneralizedRCNNTransform defaults
 _IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -78,13 +78,8 @@ def detection_transform(images: torch.Tensor,
     ``antialias=True``."""
     h, w = images.shape[1:3]
     (rh, rw), (ph, pw) = transform_output_shape((h, w), min_side)
-    # copies from pageable host memory: each waits for the card
-    with sync_point():
-        mean = torch.tensor(_IMAGENET_MEAN, dtype=torch.float32,
-                            device=images.device)
-    with sync_point():
-        std = torch.tensor(_IMAGENET_STD, dtype=torch.float32,
-                           device=images.device)
+    mean = device_constant(_IMAGENET_MEAN, torch.float32, images.device)
+    std = device_constant(_IMAGENET_STD, torch.float32, images.device)
     x = (images.to(torch.float32) - mean) / std
     if (rh, rw) != (h, w):
         x = F.interpolate(x.permute(0, 3, 1, 2), size=(rh, rw),

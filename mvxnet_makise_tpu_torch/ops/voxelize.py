@@ -16,7 +16,7 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
-from mvxnet_makise_tpu_torch.utils.profiling import sync_point
+from mvxnet_makise_tpu_torch.device import device_constant
 
 
 class VoxelGrid(NamedTuple):
@@ -92,14 +92,10 @@ def voxelize(points: torch.Tensor,
     else:
         was_valid = pos[None, :] < num_valid.to(dev)[:, None]
 
-    # constants copied from pageable host memory: each waits for the card
-    with sync_point():
-        lo = torch.tensor(velo_range[:3], dtype=points.dtype, device=dev)
-    with sync_point():
-        vs = torch.tensor(voxel_size, dtype=points.dtype, device=dev)
+    lo = device_constant(velo_range[:3], points.dtype, dev)
+    vs = device_constant(voxel_size, points.dtype, dev)
     ijk = torch.floor((points[..., :3] - lo) / vs).to(torch.int32)
-    with sync_point():
-        hi = torch.tensor([nx, ny, nz], dtype=torch.int32, device=dev)
+    hi = device_constant(grid_shape, torch.int32, dev)
     in_bounds = ((ijk >= 0) & (ijk < hi)).all(dim=-1)
     valid = was_valid & in_bounds
 

@@ -25,6 +25,16 @@ serves is the span ``mvx.serve.batch`` (``utils/profiling``); inside it
 ``mvx.serve.gather``.  :meth:`Detector.detect_stream`'s wait for the
 feed thread's batch is ``mvx.serve.feed_wait``.
 
+A batch of one frame on the card, without autograd and without a mesh,
+runs :meth:`Detector.maps`' device work (voxelize, the image branch, VFE,
+CML with K1, RPN) as one CUDA graph: the first call at an input shape
+runs eagerly, the second captures the graph (span
+``mvx.serve.graph_capture``), and every later call copies its frame into
+the graph's static inputs and replays it (span ``mvx.serve.graph``).  At
+batch 1 the host takes about as long to launch the forward kernel by
+kernel as the card takes to run it; a larger batch, a mesh's collectives
+and training stay eager.  Decode and NMS always run eagerly.
+
 With ``mesh`` (``parallel.make_mesh``, one process per card) the
 detector serves data-parallel as JAX's does: every rank passes the same
 frames, each data rank runs its contiguous slice of the batch, and every
@@ -51,7 +61,7 @@ from __future__ import annotations
 import itertools
 import os
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterable, List, Mapping, Optional, Sequence
+from typing import Iterable, List, Mapping, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -76,6 +86,24 @@ from mvxnet_makise_tpu_torch.train import checkpoint as ckpt
 from mvxnet_makise_tpu_torch.train.state import cast_for_compute
 from mvxnet_makise_tpu_torch.train.step import forward, frames_to_batch
 from mvxnet_makise_tpu_torch.utils.profiling import span, sync_point
+
+
+def graph_engages(device: torch.device, mesh, batch: int) -> bool:
+    """Whether :meth:`Detector.maps` runs as its replayed CUDA graph: on
+    the card, with autograd off, without a mesh (the model axis's
+    collectives stay eager), at a batch of one frame.  The profiler spans'
+    readers pair each kernel with a kernel launch on the host, which a
+    graph's replay does not make, so a larger batch stays eager too."""
+    return (device.type == "cuda" and not torch.is_grad_enabled()
+            and mesh is None and batch == 1)
+
+
+class _Graph(NamedTuple):
+    """:meth:`Detector.maps`' device work captured at one input key."""
+    key: tuple
+    graph: "torch.cuda.CUDAGraph"
+    inputs: tuple      # static points, num_points, images
+    outputs: tuple     # static score and reg maps
 
 
 class Detector:
@@ -125,6 +153,10 @@ class Detector:
         self.pre_max_size = pre_max_size
         self.post_max_size = post_max_size
         self._assemble_pool: Optional[ThreadPoolExecutor] = None
+        # maps' CUDA graph, and the input key of the last eager call that
+        # could have been graphed (the next call at that key captures)
+        self._graph: Optional[_Graph] = None
+        self._graph_key: Optional[tuple] = None
 
     @classmethod
     def create(cls, cfg: Config,
@@ -163,9 +195,13 @@ class Detector:
         self.model.load_state_dict(state_dict, strict=True)
         self.tensors = cast_for_compute(self.model, self.cfg.use_bf16,
                                         self.with_images)
+        # the graph read the old copies' addresses
+        self._graph = None
 
     def close(self) -> None:
-        """Stop the host-feed thread pool."""
+        """Drop the CUDA graph of :meth:`maps` and its memory pool, and
+        stop the host-feed thread pool."""
+        self._graph = None
         if self._assemble_pool is not None:
             self._assemble_pool.shutdown(wait=True)
             self._assemble_pool = None
@@ -223,36 +259,89 @@ class Detector:
                                    group=self.mesh.get_group("data"))
         return [d for part in parts for d in part]
 
-    @torch.no_grad()
     def maps(self, points, num_points, images):
         """The model's (score, reg) maps, in its compute dtype, for one
         assembled batch (under a mesh: this data rank's rows, as
         :meth:`run_batch` hands them).  The points keep the masters' dtype
         (float32 under ``use_bf16``): bfloat16 coordinates would move
-        points between voxels."""
-        dev = self.device
+        points between voxels.  Where :func:`graph_engages`, the second
+        call at an input key captures the device work into a CUDA graph
+        and later calls replay it; the maps returned are then copies of
+        the graph's, which the next replay overwrites."""
+        graphed = graph_engages(self.device, self.mesh, len(points))
+        with torch.no_grad():
+            host = tuple(torch.as_tensor(a)
+                         for a in (points, num_points, images))
+            if not graphed:
+                return self._forward(*self._upload(host))
+            key = tuple((tuple(t.shape), t.dtype) for t in host)
+            with torch.cuda.device(self.device):
+                if self._graph is None or self._graph.key != key:
+                    if self._graph_key != key:
+                        self._graph_key = key
+                        return self._forward(*self._upload(host))
+                    self._graph = None      # its pool goes before the next
+                    self._graph = self._capture(key, host)
+                g = self._graph
+                self._upload(host, g.inputs)
+                with span("mvx.serve.graph"):
+                    g.graph.replay()
+                return tuple(m.clone() for m in g.outputs)
+
+    def _upload(self, host, into=None):
+        """The batch's points, num_points and images on the card, the
+        points and images in the masters' dtype: new tensors, or copied
+        into ``into``'s."""
+        out = []
         with span("mvx.serve.upload"):
-            # copies from pageable host memory: each waits for the card
-            with sync_point():
-                pts = torch.as_tensor(points).to(dev, self.dtype)
-            with sync_point():
-                nums = torch.as_tensor(num_points).to(dev)
-            with sync_point():
-                imgs = torch.as_tensor(images).to(dev, self.dtype)
-        batch = frames_to_batch(pts, nums, imgs, self.cfg)
+            for i, (t, dtype) in enumerate(zip(host, self._dtypes(host))):
+                # a copy from pageable host memory waits for the card
+                with sync_point():
+                    out.append(t.to(self.device, dtype) if into is None
+                               else into[i].copy_(t))
+        return out
+
+    def _dtypes(self, host):
+        """The dtypes of the uploaded batch: the masters' for the points
+        and images, num_points' own."""
+        return self.dtype, host[1].dtype, self.dtype
+
+    def _forward(self, points, num_points, images):
+        batch = frames_to_batch(points, num_points, images, self.cfg)
         return forward(self.model, batch, self.cfg, self.with_images,
                        self.tensors)
+
+    def _capture(self, key, host) -> _Graph:
+        """A CUDA graph of :meth:`_forward` on static inputs shaped as
+        ``host`` (zeros here: the device work reads no value on the host,
+        so the graph holds for any frame).  As PyTorch's recipe asks, one
+        forward runs on a side stream first, so that no library makes its
+        lazy state inside the capture."""
+        with span("mvx.serve.graph_capture"):
+            inputs = tuple(torch.zeros(t.shape, dtype=d, device=self.device)
+                           for t, d in zip(host, self._dtypes(host)))
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                self._forward(*inputs)
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                outputs = tuple(self._forward(*inputs))
+        return _Graph(key, graph, inputs, outputs)
 
     # -- host API -------------------------------------------------------
 
     def warm(self, batch_sizes: Sequence[int] = (1,)) -> None:
-        """Build the kernels and run one empty batch of each size, so the
-        first request pays no build or setup cost."""
+        """Build the kernels and run two empty batches of each size (the
+        second captures :meth:`maps`' CUDA graph where it engages), so
+        the first request pays no build or setup cost."""
         cfg = self.cfg
         for b in sorted(set(batch_sizes)):
-            self.run_batch(np.zeros((b, cfg.max_points, 6), np.float32),
-                           np.zeros((b,), np.int32),
-                           np.zeros((b, *cfg.image_size, 3), np.float32))
+            for _ in range(2):
+                self.run_batch(np.zeros((b, cfg.max_points, 6), np.float32),
+                               np.zeros((b,), np.int32),
+                               np.zeros((b, *cfg.image_size, 3), np.float32))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 

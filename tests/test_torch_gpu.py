@@ -41,6 +41,7 @@ from mvxnet_makise_tpu_torch.ops import column_merge, gather, scatter_grid
 from mvxnet_makise_tpu_torch.ops.assign import create_anchors
 from mvxnet_makise_tpu_torch.ops.nms import rotated_nms_bev_batch
 from mvxnet_makise_tpu_torch.ops.scatter import scatter_voxels_to_grid
+from mvxnet_makise_tpu_torch import serve
 from mvxnet_makise_tpu_torch.serve import Detector
 from mvxnet_makise_tpu_torch.train import checkpoint as ckpt
 from mvxnet_makise_tpu_torch.train.loop import (
@@ -810,6 +811,100 @@ def test_detector_on_card_matches_cpu(cuda):
         np.testing.assert_array_equal(a.scores, b.scores)
     for d in (gpu, cpu, ref):
         d.close()
+
+
+def _same_detections(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.boxes, w.boxes)
+        np.testing.assert_array_equal(g.scores, w.scores)
+        np.testing.assert_array_equal(g.classes, w.classes)
+
+
+@pytest.mark.parametrize("with_images,use_bf16", [(False, True),
+                                                  (True, False)],
+                         ids=["lidar_bf16", "fused_float32"])
+def test_graphed_maps_bit_equal_to_eager(cuda, monkeypatch, with_images,
+                                         use_bf16):
+    """At batch 1 the detector captures ``maps``' device work at its
+    second call and replays it after: maps and detections bit-equal to
+    the eager path's on the same weights, for frames of different point
+    counts, after ``set_params`` (the new weights' detections) and through
+    ``stream_batches``; the capture makes no host sync."""
+    forward = Detector._forward
+    calls = []
+
+    def strict(self, *args):
+        if not torch.cuda.is_current_stream_capturing():
+            calls.append(("eager", self))
+            return forward(self, *args)
+        calls.append(("capture", self))
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return forward(self, *args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    monkeypatch.setattr(Detector, "_forward", strict)
+    cfg = TINY.replace(use_bf16=use_bf16)
+    kw = dict(device=cuda, with_images=with_images, score_threshold=0.0)
+    det = Detector.create(cfg, checkpoint_epoch=0, seed=3, **kw)
+    ref = Detector.create(cfg, state_dict=det.model.state_dict(), **kw)
+    rng = np.random.default_rng(4)
+    frames = []
+    for n in (700, 1200, 1500):
+        pts, calib, image = synthetic_frame(rng, cfg, num_cars=2,
+                                            num_points=n)[:3]
+        frames.append((pts, calib, image if with_images else None))
+
+    def eager(d, arrays=None, frame=None):
+        """d's maps or detections with the graph declined."""
+        with monkeypatch.context() as m:
+            m.setattr(serve, "graph_engages", lambda *a: False)
+            if arrays is not None:
+                with torch.no_grad():
+                    return d.maps(*arrays)
+            return d.detect_frames([frame])
+
+    def det_calls():
+        return [kind for kind, d in calls if d is det]
+
+    got = [det.detect_frames([f]) for f in frames + frames]
+    # eager, then a side-stream forward and the capture, then replays
+    assert det_calls() == ["eager", "eager", "capture"]
+    assert not any(d is ref for _, d in calls)
+    want = [eager(ref, frame=f) for f in frames]
+    for g, w in zip(got, want + want):
+        _same_detections(g, w)
+    assert len({w[0].scores.tobytes() for w in want}) == len(frames)
+    for f in frames:
+        arrays = det.assemble([f])
+        with torch.no_grad():
+            maps = det.maps(*arrays)
+        assert all(torch.equal(g, w)
+                   for g, w in zip(maps, eager(ref, arrays=arrays)))
+    assert det_calls() == ["eager", "eager", "capture"]
+
+    new = build_model(cfg, seed=5, device=cuda,
+                      with_images=with_images).state_dict()
+    det.set_params(new)
+    ref.set_params(new)
+    assert det._graph is None
+    after = [det.detect_frames([f]) for f in frames]
+    # the input key was seen: the first call captures anew
+    assert det_calls() == ["eager", "eager", "capture", "eager", "capture"]
+    want_new = [eager(ref, frame=f) for f in frames]
+    for g, w in zip(after, want_new):
+        _same_detections(g, w)
+    assert any(a[0].scores.tobytes() != b[0].scores.tobytes()
+               for a, b in zip(want, want_new))
+    batches = [(*det.assemble([f]), 1) for f in frames]
+    streamed = list(det.stream_batches(batches, batch_size=1))
+    _same_detections(streamed, [w[0] for w in want_new])
+    assert det_calls().count("capture") == 2
+    det.close()
+    assert det._graph is None
+    ref.close()
 
 
 def test_decode_batch_on_card_matches_cpu(cuda):

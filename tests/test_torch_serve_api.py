@@ -10,7 +10,17 @@ float32 and under ``use_bf16`` (whose bfloat16 copies must be cast again),
 so that it serves exactly what a fresh ``Detector`` on the new weights
 serves; ``run_batch`` decodes a batch in one pass into what a one-frame
 decode of each frame's maps gives.
+
+The CUDA graph of ``maps`` engages only on the card, without autograd or
+a mesh, at a batch of one frame; its bookkeeping (eager at a new input
+key, captured at the second call, replayed after, dropped by
+``set_params`` and ``close``) runs here with a stand-in graph that
+replays by running the forward on its static inputs.  The voxelizer's
+constants, made once, hold the values it made on every call before.
 """
+
+import contextlib
+import importlib
 
 import numpy as np
 import pytest
@@ -22,8 +32,14 @@ from mvxnet_makise_tpu_torch.eval.decode import (
     FrameDetections,
     decode_predictions,
 )
+from mvxnet_makise_tpu_torch import serve
+from mvxnet_makise_tpu_torch.device import device_constant
 from mvxnet_makise_tpu_torch.models.mvxnet import build_model
-from mvxnet_makise_tpu_torch.serve import Detector
+from mvxnet_makise_tpu_torch.serve import Detector, graph_engages
+
+# the module: ``ops`` exports its function under the same name
+voxelize_module = importlib.import_module(
+    "mvxnet_makise_tpu_torch.ops.voxelize")
 
 KW = dict(velo_range=(0.0, -8.0, -3.0, 12.8, 8.0, 1.0),
           voxel_shape=(32, 40, 10), image_size=(64, 96), max_points=1024,
@@ -158,3 +174,146 @@ def test_set_params_serves_the_new_weights(frames, use_bf16):
                         if not k.startswith("head.fusion.")})
     det.close()
     fresh.close()
+
+
+@pytest.mark.parametrize("device,grad,mesh,batch,engages", [
+    ("cuda", False, None, 1, True),
+    ("cpu", False, None, 1, False),
+    ("cuda", True, None, 1, False),
+    ("cuda", False, "a mesh", 1, False),
+    ("cuda", False, None, 2, False),
+], ids=["card_batch1", "cpu", "autograd", "mesh", "batch2"])
+def test_graph_plan_engages_only_on_the_card_at_batch_one(device, grad, mesh,
+                                                          batch, engages):
+    with torch.set_grad_enabled(grad):
+        assert graph_engages(torch.device(device), mesh, batch) is engages
+
+
+class _StandInGraph:
+    """Replays by running the detector's forward on the static inputs
+    into the static outputs, as the captured kernels would."""
+
+    def __init__(self, det, inputs, outputs):
+        self.det, self.inputs, self.outputs = det, inputs, outputs
+        self.replays = 0
+
+    def replay(self):
+        self.replays += 1
+        for out, new in zip(self.outputs, self.det._forward(*self.inputs)):
+            out.copy_(new)
+
+
+@pytest.fixture
+def stand_in_graphs(monkeypatch):
+    """The graph path on the CPU: the plan engages at batch 1 without
+    autograd on any device, ``torch.cuda.device`` is a no-op, and ``_capture`` makes a
+    :class:`_StandInGraph` on zeroed static inputs; returns the keys
+    captured."""
+    captured = []
+
+    def capture(self, key, host):
+        inputs = tuple(torch.zeros(t.shape, dtype=d)
+                       for t, d in zip(host, self._dtypes(host)))
+        outputs = tuple(m.clone() for m in self._forward(*inputs))
+        captured.append(key)
+        return serve._Graph(key, _StandInGraph(self, inputs, outputs),
+                            inputs, outputs)
+
+    monkeypatch.setattr(serve, "graph_engages",
+                        lambda device, mesh, batch:
+                        batch == 1 and not torch.is_grad_enabled())
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(Detector, "_capture", capture)
+    return captured
+
+
+@torch.no_grad()
+def test_graph_is_captured_at_the_second_call_and_replayed_after(
+        det, frames, stand_in_graphs):
+    eager = Detector.create(CFG, state_dict=det.model.state_dict(),
+                            device="cpu", score_threshold=0.0)
+    arrays = [det.assemble([f]) for f in frames[:4]]
+    got = []
+    for i, a in enumerate(arrays):
+        got.append(det.maps(*a))
+        assert len(stand_in_graphs) == (0 if i == 0 else 1)
+    graph = det._graph.graph
+    assert graph.replays == 3
+    # copies of the static maps, which the next replay overwrites
+    assert all(m.data_ptr() != s.data_ptr()
+               for m, s in zip(got[-1], det._graph.outputs))
+    with torch.enable_grad():       # autograd declines the graph
+        want = [eager.maps(*a) for a in arrays]
+    for g, w in zip(got, want):
+        assert all(torch.equal(x, y) for x, y in zip(g, w))
+    d = decode_predictions(want[0][0][0].float(), want[0][1][0].float(),
+                           det.anchors, score_threshold=det.score_threshold)
+    v = d.valid.numpy()
+    assert v.any()
+    assert _same(det.detect_frames(frames[:1])[0], FrameDetections(
+        boxes=d.boxes.numpy()[v], scores=d.scores.numpy()[v],
+        classes=d.classes.numpy()[v]))
+    assert graph.replays == 4
+    # a new input key runs eagerly once, then captures anew
+    pts, nums, imgs = arrays[0]
+    wide = (pts, nums.astype(np.int64), imgs)
+    det.maps(*wide)
+    assert len(stand_in_graphs) == 1 and det._graph.graph is graph
+    det.maps(*wide)
+    assert len(stand_in_graphs) == 2 and det._graph.graph is not graph
+    # batches of two frames stay eager
+    det.maps(*det.assemble(frames[:2]))
+    assert len(stand_in_graphs) == 2
+    det._graph = None
+    eager.close()
+
+
+def test_set_params_and_close_drop_the_graph(frames, stand_in_graphs):
+    det = Detector.create(CFG, checkpoint_epoch=0, seed=0, device="cpu")
+    arrays = det.assemble(frames[:1])
+    with torch.no_grad():
+        det.maps(*arrays)
+        det.maps(*arrays)
+    assert det._graph is not None
+    det.set_params(build_model(CFG, seed=1, device="cpu").state_dict())
+    assert det._graph is None
+    with torch.no_grad():
+        det.maps(*arrays)       # the key was seen: captures at once
+    assert det._graph is not None and len(stand_in_graphs) == 2
+    det.close()
+    assert det._graph is None
+
+
+@torch.no_grad()
+def test_cpu_detector_keeps_no_graph(frames):
+    det = Detector.create(CFG, checkpoint_epoch=0, seed=0, device="cpu")
+    for f in frames[:3]:
+        det.detect_frames([f])
+    assert det._graph is None and det._graph_key is None
+    det.close()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_voxelize_constants_are_made_once_with_the_values_made_per_call(
+        det, frames, monkeypatch, dtype):
+    kw = dict(velo_range=CFG.velo_range, voxel_size=CFG.voxel_size,
+              grid_shape=CFG.voxel_shape, max_voxels=CFG.max_voxels,
+              samples_per_voxel=CFG.samples_per_voxel)
+    for values, dt in ((CFG.velo_range[:3], dtype), (CFG.voxel_size, dtype),
+                       (CFG.voxel_shape, torch.int32)):
+        made = device_constant(values, dt, torch.device("cpu"))
+        assert made is device_constant(list(values), dt, "cpu")
+        fresh = torch.tensor(values, dtype=dt)
+        assert made.dtype == fresh.dtype and torch.equal(made, fresh)
+    pts, nums, _ = (torch.from_numpy(a) for a in det.assemble(frames[:3]))
+    pts = pts.to(dtype)
+    got = voxelize_module.voxelize(pts, nums, **kw)
+    # the constants as they were made before: anew on every call
+    monkeypatch.setattr(voxelize_module, "device_constant",
+                        lambda values, dt, device: torch.tensor(
+                            values, dtype=dt, device=device))
+    want = voxelize_module.voxelize(pts, nums, **kw)
+    assert int(want.num_voxels.sum()) > 0
+    for name, g, w in zip(want._fields, got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
